@@ -1,0 +1,565 @@
+#!/usr/bin/env python3
+"""Run mxnet_tpu_torch's serving path once on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. The card (``nvidia-smi`` name and power limit) and the versions.
+2. Build every CUDA kernel from ``mxnet_tpu_torch/csrc`` (timed).
+3. Each kernel against its plain PyTorch version on the card, at the
+   shapes the generation lane gives it, with its time, the plain version's
+   time, the time of one library call computing the same function where
+   there is one, and the least time the card could take (its bound).
+4. The generation lane at the full width of the LM the repo benches
+   (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
+   vocab 32000, seq_len 2048), fp32, random weights from a seed: an
+   ``LMBackend`` registered on a ``GenerationScheduler``, warmed up, then 8
+   concurrent requests (prompts of 64-512 tokens, 32-64 new tokens each)
+   submitted and streamed.  Every request must finish by length with no
+   dispatch error, every kernel must have launched in that run (counts are
+   zeroed just before it and read just after), and for two requests each
+   step's logits are held against the full-sequence forward at the same
+   position.
+5. One JSON line ``{"kernels": [...]}`` with each kernel's launches, error
+   and times.
+6. The card line again and, last, ``{"ok": true, "device": {...}}``.
+
+It imports only ``mxnet_tpu_torch``, ``torch`` and ``numpy``, and exits
+non-zero, printing no result, when CUDA is not available or the package is
+not beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# rate, and the fp32 rate outside the tensor cores (every kernel here is
+# fp32 on CUDA cores).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+# fp32 tolerance of the JAX package's parity classes (ops/fused/parity.py).
+TOL = 2e-5
+# The flash kernel sums the softmax in another order (online, over 32-key
+# tiles) than the plain version (sequential over all keys): its error grows
+# with T, so it is held to 1e-4.
+FLASH_TOL = 1e-4
+# Decode logits against the full forward: the two run different kernels
+# (paged decode vs flash) and sum in different orders through 12 layers.
+LOGIT_TOL = 1e-3
+
+SEED = 0
+CFG = {"num_classes": 32000, "seq_len": 2048, "num_embed": 1024,
+       "num_heads": 16, "num_layers": 12}
+BLOCK_SIZE = 16
+NUM_BLOCKS = 320
+PREFILL_BUCKETS = [64, 128, 256, 512]
+DECODE_BUCKETS = [1, 2, 4, 8]
+PROMPTS = [64, 100, 128, 200, 256, 300, 450, 512]
+NEW_TOKENS = [32, 40, 48, 56, 64, 64, 48, 64]
+CHECKED = (0, 7)            # requests whose logits meet the full forward
+
+
+class SmokeError(Exception):
+    pass
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise SmokeError("nvidia-smi failed: %s" % out.stderr.strip())
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters, warmup=2):
+    """Device ms of one ``fn(i)``: ``iters`` calls are captured into a CUDA
+    graph and the graph's replay is timed with CUDA events, so the time is
+    the card's and not the host's launch rate (a small kernel launched from
+    Python back to back measures the latter)."""
+    import torch
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(got, want, tol, name):
+    err = (got - want).abs().max().item()
+    ok = bool(np.isfinite(err)) and bool(
+        ((got - want).abs() <= tol + tol * want.abs()).all().item())
+    print("  %-14s max|err| %.3e  (tolerance %.0e abs + rel)"
+          % (name, err, tol))
+    if not ok:
+        raise SmokeError("%s kernel disagrees with its plain version "
+                         "(max |err| %.3e)" % (name, err))
+    return err
+
+
+# ----------------------------------------------------------------- phase 3
+
+
+def check_kernels(dev, cfg):
+    """Each kernel against its plain version at the lane's shapes; returns
+    the kernel rows of the JSON line (launches filled in later)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops.fused import attention_kernels as ak
+    from mxnet_tpu_torch.ops.fused import norm_kernels as nk
+
+    rng = np.random.RandomState(SEED + 1)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    c, heads = cfg["num_embed"], cfg["num_heads"]
+    d = c // heads
+    t = PREFILL_BUCKETS[-1]
+    rows = []
+
+    # LM layer norm, on the largest prefill's [1, T, C] rows
+    x, g, b = randn(1, t, c), randn(c), randn(c)
+    err = max_err(nk.lm_layer_norm(x, g, b), nk.lm_layer_norm_plain(x, g, b),
+                  TOL, "lm_layer_norm")
+    nb, by = bound((2 * x.numel() + 2 * c) * 4, 8 * x.numel())
+    rows.append({
+        "name": "lm_layer_norm", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/norm_kernels.cu",
+        "replaces": "mxnet_tpu/ops/fused/norm_kernels.py:85",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda i: nk.lm_layer_norm(x, g, b), 200),
+        "plain_ms": cuda_ms(lambda i: nk.lm_layer_norm_plain(x, g, b), 50),
+        "bound_ms": nb, "bound_by": by,
+        "library_ms": cuda_ms(
+            lambda i: F.layer_norm(x, (c,), g, b, eps=1e-5), 200)})
+
+    # GELU+bias epilogue on the FFN hidden [1, T, 4C]
+    h, bias = randn(1, t, 4 * c), randn(4 * c)
+    err = max_err(nk.lm_gelu_bias(h, bias), nk.lm_gelu_bias_plain(h, bias),
+                  TOL, "lm_gelu_bias")
+    nb, by = bound((2 * h.numel() + 4 * c) * 4, 10 * h.numel())
+    rows.append({
+        "name": "lm_gelu_bias", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/norm_kernels.cu",
+        "replaces": "mxnet_tpu/ops/fused/norm_kernels.py:105",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda i: nk.lm_gelu_bias(h, bias), 200),
+        "plain_ms": cuda_ms(lambda i: nk.lm_gelu_bias_plain(h, bias), 50),
+        "bound_ms": nb, "bound_by": by,
+        "library_ms": None})   # no one torch call adds the bias and gelus
+
+    # flash prefill at the largest bucket, and a ragged length
+    q, k, v = (randn(1, heads, t, d) for _ in range(3))
+    err = max_err(ak.fused_prefill_attention(q, k, v),
+                  att.stable_causal_attention_plain(q, k, v), FLASH_TOL,
+                  "flash_prefill")
+    qr, kr, vr = (randn(1, heads, 333, d) for _ in range(3))
+    max_err(ak.fused_prefill_attention(qr, kr, vr),
+            att.stable_causal_attention_plain(qr, kr, vr), FLASH_TOL,
+            "flash T=333")
+    pairs = t * (t + 1) // 2
+    nb, by = bound(4 * q.numel() * 4, 4 * d * heads * pairs)
+    rows.append({
+        "name": "flash_prefill", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/attention_kernels.cu",
+        "replaces": "mxnet_tpu/ops/attention.py:281",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda i: ak.fused_prefill_attention(q, k, v), 100),
+        "plain_ms": cuda_ms(
+            lambda i: att.stable_causal_attention_plain(q, k, v), 3),
+        "bound_ms": nb, "bound_by": by,
+        "library_ms": cuda_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 100)})
+
+    # paged decode: 8 sequences through one layer's pool; timed over all
+    # layers' pools in turn, as a decode step reads them
+    layers = cfg["num_layers"]
+    bsz = len(PROMPTS)
+    max_blocks = -(-cfg["seq_len"] // BLOCK_SIZE)
+    ctx = np.array([p + n for p, n in zip(PROMPTS, NEW_TOKENS)], np.int32)
+    k_pages = randn(layers, NUM_BLOCKS, BLOCK_SIZE, heads, d)
+    v_pages = randn(layers, NUM_BLOCKS, BLOCK_SIZE, heads, d)
+    tables = np.zeros((bsz, max_blocks), np.int32)
+    nxt = 1
+    for i, n in enumerate(ctx):
+        used = -(-int(n) // BLOCK_SIZE)
+        tables[i, :used] = np.arange(nxt, nxt + used)
+        nxt += used
+    if nxt > NUM_BLOCKS:
+        raise SmokeError("paged check needs %d blocks" % nxt)
+    bt = torch.from_numpy(tables).to(dev)
+    cl = torch.from_numpy(ctx).to(dev)
+    qd, ks, vs = (randn(bsz, heads, d) for _ in range(3))
+    err = max_err(
+        ak.fused_paged_decode_attention(qd, ks, vs, k_pages[0], v_pages[0],
+                                        bt, cl),
+        att.paged_decode_attention_plain(qd, ks, vs, k_pages[0], v_pages[0],
+                                         bt, cl), TOL, "paged_decode")
+    ntok = int(ctx.sum())
+    blocks_read = int(sum(-(-int(n) // BLOCK_SIZE) for n in ctx))
+    nbytes = ((ntok - bsz) * heads * d * 4 * 2 + 4 * bsz * heads * d * 4
+              + blocks_read * 4 + bsz * 4)
+    nb, by = bound(nbytes, 4 * d * heads * ntok)
+    rows.append({
+        "name": "paged_decode", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/attention_kernels.cu",
+        "replaces": "mxnet_tpu/ops/fused/attention_kernels.py:117",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda i: ak.fused_paged_decode_attention(
+            qd, ks, vs, k_pages[i % layers], v_pages[i % layers], bt, cl),
+            120),
+        "plain_ms": cuda_ms(lambda i: att.paged_decode_attention_plain(
+            qd, ks, vs, k_pages[i % layers], v_pages[i % layers], bt, cl),
+            12),
+        "bound_ms": nb, "bound_by": by,
+        "library_ms": None})   # no one torch call reads through a table
+    del k_pages, v_pages
+    return rows
+
+
+# ----------------------------------------------------------------- phase 4
+
+
+class LaneRecorder(object):
+    """Wraps a backend's prefill/decode and its cache's allocate/free on
+    the instance, to keep each step's logits and which sequence each row
+    belonged to."""
+
+    def __init__(self, backend):
+        self.log = []
+        self.prefill_ms = []
+        cache = backend.cache
+        prefill, decode = backend.prefill, backend.decode
+        allocate, free = cache.allocate, cache.free
+
+        def rec_prefill(tokens, length):
+            t0 = time.perf_counter()
+            out = prefill(tokens, length)   # logits come back: synced
+            self.prefill_ms.append((length, (time.perf_counter() - t0) * 1e3))
+            self.log.append(("prefill", out[0].copy()))
+            return out
+
+        def rec_decode(tokens, positions, tables, context):
+            out = decode(tokens, positions, tables, context)
+            self.log.append(("decode", np.array(tables), np.array(positions),
+                             out[0].copy()))
+            return out
+
+        def rec_allocate(seq_id, num_tokens):
+            allocate(seq_id, num_tokens)
+            self.log.append(("alloc", seq_id,
+                             cache.block_table(seq_id,
+                                               backend.max_blocks_per_seq)))
+
+        def rec_free(seq_id):
+            self.log.append(("free", seq_id))
+            return free(seq_id)
+
+        backend.prefill, backend.decode = rec_prefill, rec_decode
+        cache.allocate, cache.free = rec_allocate, rec_free
+
+    def logits_of(self, seq_id):
+        """``[(position of the input token, logits row)]`` of one sequence:
+        its prefill's last row, then one row per decode step."""
+        out, table, live = [], None, False
+        for ev in self.log:
+            if ev[0] == "alloc" and ev[1] == seq_id:
+                table, live = ev[2], True
+            elif ev[0] == "free" and ev[1] == seq_id:
+                live = False
+            elif live and ev[0] == "prefill" and not out:
+                out.append((None, ev[1]))
+            elif live and ev[0] == "decode":
+                tables, positions, logits = ev[1:]
+                # padded rows sit at position 0, live ones never do
+                hit = np.where((tables == table).all(axis=1)
+                               & (positions > 0))[0]
+                if len(hit) != 1:
+                    raise SmokeError("sequence %s in %d rows of a step"
+                                     % (seq_id, len(hit)))
+                out.append((int(positions[hit[0]]), logits[hit[0]]))
+        return out
+
+
+def run_slice(dev, cfg, prompts, new_tokens, num_blocks, prefill_buckets,
+              decode_buckets, checked, card):
+    import torch
+
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.serving import GenerationScheduler, LMBackend
+
+    t0 = time.perf_counter()
+    params = tfm.init_lm_params(cfg, seed=SEED)
+    nparams = sum(a.size for a in params.values())
+    print("  params: %d (%.2f GB fp32), drawn in %.1f s"
+          % (nparams, nparams * 4 / 1e9, time.perf_counter() - t0))
+    rng = np.random.RandomState(SEED + 2)
+    prompt_ids = [rng.randint(0, cfg["num_classes"], size=n).astype(np.int32)
+                  for n in prompts]
+
+    reset_launch_counts()
+    # -- the main path: entry points a user calls ------------------------
+    backend = LMBackend(params, cfg, block_size=BLOCK_SIZE,
+                        num_blocks=num_blocks, device=dev)
+    sched = GenerationScheduler()
+    sched.register("lm", backend, decode_buckets=decode_buckets,
+                   prefill_buckets=prefill_buckets)
+    t0 = time.perf_counter()
+    sched.warmup("lm")
+    print("  warmup: %.1f ms" % ((time.perf_counter() - t0) * 1e3))
+    rec = LaneRecorder(backend)
+    stamps = [[] for _ in prompts]
+
+    def stream(i, req):
+        for _ in req.tokens(timeout=300):
+            stamps[i].append(time.perf_counter())
+
+    t_submit = time.perf_counter()
+    reqs = [sched.submit("lm", p, max_new_tokens=n)
+            for p, n in zip(prompt_ids, new_tokens)]
+    threads = [threading.Thread(target=stream, args=(i, r), daemon=True)
+               for i, r in enumerate(reqs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    t_end = time.perf_counter()
+    if any(th.is_alive() for th in threads):
+        raise SmokeError("requests still streaming after 600 s")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    # -- end of the main path -------------------------------------------
+    stats = sched.stats("lm")
+    sched.close()
+    for i, r in enumerate(reqs):
+        if r.error is not None or r.finish_reason != "length" \
+                or len(r.generated) != new_tokens[i]:
+            raise SmokeError("request %d: finish %r, %d tokens, error %r"
+                             % (i, r.finish_reason, len(r.generated),
+                                r.error))
+    if stats["dispatch_errors"]:
+        raise SmokeError("lane counted %d dispatch errors"
+                         % stats["dispatch_errors"])
+    print("  lane: %d requests, %d decode steps, %d tokens, occupancy %.3f,"
+          " dispatch errors %d" % (stats["requests"], stats["steps"],
+                                   stats["tokens"], stats["occupancy"],
+                                   stats["dispatch_errors"]))
+    print("  launches in the run: %s" % json.dumps(counts))
+    missing = [n for n, c in counts.items() if c == 0]
+    if dev.type == "cuda" and missing:
+        raise SmokeError("kernels never launched on the main path: %s"
+                         % missing)
+
+    total = sum(len(s) for s in stamps)
+    gaps = np.concatenate([np.diff(s) for s in stamps if len(s) > 1]) * 1e3
+    ttft = [(s[0] - t_submit) * 1e3 for s in stamps]
+    pre = [ms for _, ms in rec.prefill_ms]
+    print("  [%s] prefill ms per request: mean %.2f, max %.2f (%s)"
+          % (card, np.mean(pre), np.max(pre),
+             ", ".join("T=%d %.2f" % lm for lm in rec.prefill_ms)))
+    print("  [%s] tokens/s %.1f (%d tokens of %d requests in %.3f s)"
+          % (card, total / (t_end - t_submit), total, len(reqs),
+             t_end - t_submit))
+    print("  [%s] inter-token ms p50 %.3f p99 %.3f; first token ms max %.1f"
+          % (card, np.percentile(gaps, 50), np.percentile(gaps, 99),
+             max(ttft)))
+
+    # decode logits against the full-sequence forward
+    worst, diffs = 0.0, 0
+    for i in checked:
+        r = reqs[i]
+        seq = rec.logits_of(r.seq_id)
+        full = np.concatenate([r.prompt, np.asarray(r.generated[:-1],
+                                                    np.int32)])
+        tokens = torch.from_numpy(full.astype(np.int64))[None].to(dev)
+        ref = tfm.lm_prefill(backend.params, tokens, cfg)[0][0].cpu().numpy()
+        if len(seq) != len(r.generated):
+            raise SmokeError("request %d: %d logit rows for %d tokens"
+                             % (i, len(seq), len(r.generated)))
+        for j, (pos, row) in enumerate(seq):
+            at = len(r.prompt) - 1 + j
+            if pos is not None and pos != at:
+                raise SmokeError("request %d step %d at position %d, not %d"
+                                 % (i, j, pos, at))
+            err = float(np.abs(row - ref[at]).max())
+            worst = max(worst, err)
+            if not np.isfinite(row).all() or err > LOGIT_TOL:
+                raise SmokeError("request %d step %d: decode logits differ "
+                                 "from the full forward by %.3e"
+                                 % (i, j, err))
+            best = int(np.argmax(ref[at]))
+            if best != r.generated[j]:
+                diffs += 1
+                gap = float(ref[at][best] - ref[at][r.generated[j]])
+                if gap > LOGIT_TOL:
+                    raise SmokeError("request %d step %d: greedy token %d, "
+                                     "full forward %d by a gap of %.3e"
+                                     % (i, j, r.generated[j], best, gap))
+    print("  decode vs full forward (requests %s): max |logit diff| %.3e "
+          "(tolerance %.0e), greedy tokens differing: %d"
+          % (list(checked), worst, LOGIT_TOL, diffs))
+    if dev.type == "cuda":
+        decode_breakdown(backend, reqs, card)
+    return counts
+
+
+def decode_breakdown(backend, reqs, card):
+    """Where one full decode step (8 rows) goes: its host wall time
+    against the card's time for the same step, taken by replaying the
+    step's kernels as one CUDA graph (so no host gap is counted), and the
+    step's kernels by device time from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.models import transformer as tfm
+
+    bsz, cfg = len(reqs), backend.cfg
+    seqs = ["__timing%d" % i for i in range(bsz)]
+    tables, ctx = [], []
+    for s, r in zip(seqs, reqs):
+        n = len(r.prompt) + len(r.generated)
+        backend.cache.allocate(s, n)
+        tables.append(backend.cache.block_table(s, backend.max_blocks_per_seq))
+        ctx.append(n)
+    ctx = np.asarray(ctx, np.int32)
+    args = (np.zeros(bsz, np.int32), ctx - 1, np.stack(tables), ctx)
+    for _ in range(3):
+        backend.decode(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        backend.decode(*args)          # returns host logits: synced
+    wall = (time.perf_counter() - t0) * 1e3 / 10
+
+    dev = backend.device
+    tok = torch.zeros(bsz, dtype=torch.long, device=dev)
+    pos = torch.from_numpy(ctx - 1).to(dev)
+    cl = torch.from_numpy(ctx).to(dev)
+    bt = torch.from_numpy(np.stack(tables)).to(dev)
+
+    def step(i):
+        tfm.lm_decode_step(backend.params, tok, pos, backend.cache.k_pages,
+                           backend.cache.v_pages, bt, cl, cfg)
+
+    device_ms = cuda_ms(step, 5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            step(i)
+        torch.cuda.synchronize()
+    for s in seqs:
+        backend.cache.free(s)
+    print("  [%s] decode step (B=%d, %d layers): %.3f ms host wall, %.3f ms "
+          "on the card (CUDA graph replay): the card idles %.1f%% of the "
+          "step" % (card, bsz, cfg["num_layers"], wall, device_ms,
+                    100.0 * max(0.0, 1 - device_ms / wall)))
+    # kernel rows only: an op's row also carries its kernels' time
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    if not kernels:
+        print("    kernels by device time: not measured (no CUDA events)")
+    for e in kernels[:8]:
+        print("    %-58s %7.3f ms/step %4d launches/step"
+              % (e.key[:58], e.self_device_time_total / 1e3 / 3,
+                 e.count // 3))
+
+
+# -------------------------------------------------------------------- main
+
+
+def main():
+    sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeError("CUDA is not available")
+    import mxnet_tpu_torch  # noqa: F401 - fails here when not beside it
+    from mxnet_tpu_torch.ops import _build
+
+    print("== phase 1: card")
+    card = card_line()
+    print(card)
+    print("torch %s, CUDA %s, python %s, device %s"
+          % (torch.__version__, torch.version.cuda, sys.version.split()[0],
+             torch.cuda.get_device_name(0)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    print("== phase 2: build the CUDA kernels")
+    secs = _build.build_all()
+    print("  built/loaded in %.2f s" % secs)
+    for name in ("attention_kernels", "norm_kernels"):
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print("  %s: %s" % (name, line.strip()))
+
+    print("== phase 3: kernels against their plain versions")
+    rows = check_kernels(dev, CFG)
+    for r in rows:
+        print("  [%s] %-14s kernel %.4f ms  plain %.4f ms  library %s  "
+              "bound %.4f ms (%s)"
+              % (card, r["name"], r["ms"], r["plain_ms"],
+                 "%.4f ms" % r["library_ms"] if r["library_ms"] is not None
+                 else "none", r["bound_ms"], r["bound_by"]))
+    torch.cuda.synchronize()
+
+    print("== phase 4: generation lane, %d layers, d%d, vocab %d"
+          % (CFG["num_layers"], CFG["num_embed"], CFG["num_classes"]))
+    counts = run_slice(dev, CFG, PROMPTS, NEW_TOKENS, NUM_BLOCKS,
+                       PREFILL_BUCKETS, DECODE_BUCKETS, CHECKED, card)
+
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except (SmokeError, ImportError) as exc:
+        print("chip_smoke FAILED: %s: %s" % (type(exc).__name__, exc),
+              file=sys.stderr)
+        sys.exit(1)

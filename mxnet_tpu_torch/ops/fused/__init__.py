@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper and their wrappers.
+
+Each wrapper takes its plain PyTorch version for a CPU tensor and, for a
+CUDA tensor, launches its kernel or raises: there is no fallback from a
+failed build or launch to the plain version.
+"""
+
+from . import attention_kernels, norm_kernels
+
+__all__ = ["attention_kernels", "norm_kernels"]

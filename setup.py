@@ -43,8 +43,10 @@ setup(
     version="0.9.5.dev2",  # tracks the reference's v0.9.5 API surface
     description="TPU-native deep learning framework with the MXNet v0.9 "
                 "API surface, rebuilt on jax/XLA/Pallas",
-    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*"]),
-    package_data={"mxnet_tpu": ["../native/build/libmxtpu.so"]},
+    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
+                                    "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
+    package_data={"mxnet_tpu": ["../native/build/libmxtpu.so"],
+                  "mxnet_tpu_torch": ["csrc/*.cu", "csrc/*.h"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     cmdclass={"build_native": BuildNative, "build_py": BuildPyWithNative},
