@@ -1,29 +1,44 @@
 #!/usr/bin/env python3
-"""Run mxnet_tpu_torch's serving path once on one NVIDIA card and check it.
+"""Run mxnet_tpu_torch's serving and training paths once on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
 
 1. The card (``nvidia-smi`` name and power limit) and the versions.
-2. Build every CUDA kernel from ``mxnet_tpu_torch/csrc`` (timed).
+2. Build every CUDA kernel from ``mxnet_tpu_torch/csrc`` (timed; one
+   ``nvcc`` per source, all at once).
 3. Each kernel against its plain PyTorch version on the card, at the
-   shapes the generation lane gives it, with its time, the plain version's
-   time, the time of one library call computing the same function where
-   there is one, and the least time the card could take (its bound).
+   shapes its path gives it (the generation lane's, and the bench training
+   step's: q, k, v [8, 16, 2048, 64] causal, the LayerNorm op on
+   [8, 2048, 1024], the momentum step over every parameter of the bench
+   model) and at a ragged shape, with its time, the plain version's time,
+   the time of one library call computing the same function where there is
+   one, and the least time the card could take (its bound).
 4. The generation lane at the full width of the LM the repo benches
    (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
    vocab 32000, seq_len 2048), fp32, random weights from a seed: an
    ``LMBackend`` registered on a ``GenerationScheduler``, warmed up, then 8
    concurrent requests (prompts of 64-512 tokens, 32-64 new tokens each)
    submitted and streamed.  Every request must finish by length with no
-   dispatch error, every kernel must have launched in that run (counts are
-   zeroed just before it and read just after), and for two requests each
-   step's logits are held against the full-sequence forward at the same
-   position.
-5. One JSON line ``{"kernels": [...]}`` with each kernel's launches, error
-   and times.
-6. The card line again and, last, ``{"ok": true, "device": {...}}``.
+   dispatch error, every lane kernel must have launched in that run
+   (counts are zeroed just before it and read just after), and for two
+   requests each step's logits are held against the full-sequence forward
+   at the same position.
+5. One ``ShardedTrainer`` step of the LM at full width cut to 2 layers,
+   batch 1, T 512, on the card and on the CPU (plain versions) from the
+   same ``init(seed=0)`` and batch: outputs, weights and momenta agree.
+6. Training the bench configuration (12 layers, batch 8, T 2048, SGD
+   momentum 0.9, lr 1e-3, fp32) through ``get_symbol`` ->
+   ``ShardedTrainer`` -> ``init`` -> ``place_batch`` -> ``step_fn``: one
+   warm-up step and 5 timed steps on one seeded batch, whose losses must be
+   finite and falling; step time, tokens/s, peak memory, launches per step
+   and, from one profiled step, the card's idle share and its time by
+   kernel.  Counts are zeroed just before and read just after.
+7. One JSON line ``{"kernels": [...]}`` with each kernel's launches (both
+   paths'; every kernel must have launched), error and times.
+8. The card line again and, last, ``{"ok": true, "device": {...}}``.
 
 It imports only ``mxnet_tpu_torch``, ``torch`` and ``numpy``, and exits
 non-zero, printing no result, when CUDA is not available or the package is
@@ -33,6 +48,7 @@ not beside it.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -55,6 +71,12 @@ FLASH_TOL = 1e-4
 # Decode logits against the full forward: the two run different kernels
 # (paged decode vs flash) and sum in different orders through 12 layers.
 LOGIT_TOL = 1e-3
+# The flash gradients and the LayerNorm op's gradient against their plain
+# versions: the gradients sum over all rows (dK, dV, dgamma: 2048 and 16384
+# terms) in another order; the JAX package holds its flash gradients to
+# the same 1e-4 (tests/test_attention.py).
+GRAD_TOL = 1e-4
+TRAIN_BATCH = 8            # bench.py's batch on the chip
 
 SEED = 0
 CFG = {"num_classes": 32000, "seq_len": 2048, "num_embed": 1024,
@@ -66,6 +88,8 @@ DECODE_BUCKETS = [1, 2, 4, 8]
 PROMPTS = [64, 100, 128, 200, 256, 300, 450, 512]
 NEW_TOKENS = [32, 40, 48, 56, 64, 64, 48, 64]
 CHECKED = (0, 7)            # requests whose logits meet the full forward
+LANE_KERNELS = ("flash_prefill", "paged_decode", "lm_layer_norm",
+                "lm_gelu_bias")
 
 
 class SmokeError(Exception):
@@ -248,6 +272,246 @@ def check_kernels(dev, cfg):
     return rows
 
 
+def events_ms(fn, iters, warmup=1):
+    """Device ms of one ``fn()`` by CUDA events around ``iters`` calls, for
+    calls that a CUDA graph cannot capture (autograd's backward) and that
+    last milliseconds, so the host's launch rate does not show."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def exact(got, want, name):
+    """Bitwise agreement (the optimizer step rounds each operation on its
+    own in both versions)."""
+    err = (got - want).abs().max().item()
+    print("  %-14s max|err| %.3e  (bitwise)" % (name, err))
+    if not bool((got == want).all().item()):
+        raise SmokeError("%s kernel differs from its plain version "
+                         "(max |err| %.3e)" % (name, err))
+    return err
+
+
+def check_training_kernels(dev, cfg):
+    """The training path's kernels against their plain versions at the
+    shapes the bench step gives them (batch 8, T 2048, causal, D 64; the
+    LayerNorm op on [8, 2048, 1024]; the momentum step over every
+    parameter of the bench model), and once more at a ragged shape.
+    Returns the kernel rows of the JSON line (launches filled in later)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops.fused import attention_kernels as ak
+    from mxnet_tpu_torch.ops.fused import norm_kernels as nk
+    from mxnet_tpu_torch.ops.fused import optimizer_kernels as ok_
+    from mxnet_tpu_torch.symbol import infer
+
+    rng = np.random.RandomState(SEED + 3)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    b, t = TRAIN_BATCH, cfg["seq_len"]
+    heads, c = cfg["num_heads"], cfg["num_embed"]
+    d = c // heads
+    rows = []
+
+    # flash forward with lse (row 1) and the backward pair (rows 2, 3)
+    q, k, v, do = (randn(b, heads, t, d) for _ in range(4))
+    o, lse = ak.fused_flash_fwd(q, k, v, True)
+    o_p, lse_p = att.flash_fwd_plain(q, k, v, True)
+    err_o = max_err(o, o_p, FLASH_TOL, "flash fwd o")
+    err_l = max_err(lse, lse_p, FLASH_TOL, "flash fwd lse")
+    dq, dk, dv = ak.fused_flash_bwd(q, k, v, o, lse, do, True)
+    want = att.flash_bwd_plain(q, k, v, o_p, lse_p, do, True)
+    err_dq = max_err(dq, want[0], FLASH_TOL, "flash dq")
+    err_dk = max_err(dk, want[1], FLASH_TOL, "flash dk")
+    err_dv = max_err(dv, want[2], FLASH_TOL, "flash dv")
+    del want, o_p, lse_p
+    # ragged, not causal, a scale other than 1/sqrt(D), and Tk != T
+    for tq, tk in ((333, 333), (333, 300)):
+        qr, dor = randn(1, heads, tq, d), randn(1, heads, tq, d)
+        kr, vr = randn(1, heads, tk, d), randn(1, heads, tk, d)
+        orr, lr = ak.fused_flash_fwd(qr, kr, vr, False, 0.3)
+        orp, lrp = att.flash_fwd_plain(qr, kr, vr, False, 0.3)
+        tag = "T=%d Tk=%d" % (tq, tk)
+        max_err(orr, orp, FLASH_TOL, "fwd o " + tag)
+        max_err(lr, lrp, FLASH_TOL, "fwd lse " + tag)
+        got = ak.fused_flash_bwd(qr, kr, vr, orr, lr, dor, False, 0.3)
+        want = att.flash_bwd_plain(qr, kr, vr, orp, lrp, dor, False, 0.3)
+        for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            max_err(g_, w_, FLASH_TOL, "%s %s" % (name, tag))
+
+    pairs = b * heads * t * (t + 1) // 2
+    nbytes = q.numel() * 4
+    nb, by = bound(4 * nbytes + lse.numel() * 4, 4 * d * pairs)
+    q_, k_, v_ = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+    rows.append({
+        "name": "flash_prefill", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/attention_kernels.cu",
+        "replaces": "mxnet_tpu/ops/attention.py:281",
+        "max_abs_err": max(err_o, err_l),
+        "ms": cuda_ms(lambda i: ak.fused_flash_fwd(q, k, v, True), 10),
+        "plain_ms": cuda_ms(lambda i: att.flash_fwd_plain(q, k, v, True), 2),
+        "bound_ms": nb, "bound_by": by,
+        "library_ms": cuda_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 10)})
+    delta = (do * o).sum(-1)
+    scale = 1.0 / d ** 0.5
+    dims = (b, heads, t, t, d, 1, scale)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    plain_bwd = cuda_ms(lambda i: att.flash_bwd_plain(q, k, v, o, lse, do,
+                                                      True), 2)
+    lib_bwd = events_ms(lambda: torch.autograd.grad(
+        lib_out, (q_, k_, v_), do, retain_graph=True), 5)
+    qa, ka, va = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    print("  [forward + backward, training shape] flash_attention %.4f ms, "
+          "scaled_dot_product_attention %.4f ms"
+          % (events_ms(lambda: torch.autograd.grad(att.flash_attention(
+              qa, ka, va, causal=True), (qa, ka, va), do), 5),
+             events_ms(lambda: torch.autograd.grad(
+                 F.scaled_dot_product_attention(qa, ka, va, is_causal=True),
+                 (qa, ka, va), do), 5)))
+    del qa, ka, va
+    nb, by = bound(6 * nbytes + 2 * lse.numel() * 4, 8 * d * pairs)
+    rows.append({
+        "name": "flash_bwd_dkdv", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/attention_kernels.cu",
+        "replaces": "mxnet_tpu/ops/attention.py:572",
+        "max_abs_err": max(err_dk, err_dv),
+        "ms": cuda_ms(lambda i: ak.FLASH_BWD_DKDV.launch(
+            dev, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims), 10),
+        "plain_ms": plain_bwd, "bound_ms": nb, "bound_by": by,
+        "library_ms": lib_bwd})
+    nb, by = bound(5 * nbytes + 2 * lse.numel() * 4, 6 * d * pairs)
+    rows.append({
+        "name": "flash_bwd_dq", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/attention_kernels.cu",
+        "replaces": "mxnet_tpu/ops/attention.py:596",
+        "max_abs_err": err_dq,
+        "ms": cuda_ms(lambda i: ak.FLASH_BWD_DQ.launch(
+            dev, *ptrs, dq.data_ptr(), *dims), 10),
+        "plain_ms": plain_bwd, "bound_ms": nb, "bound_by": by,
+        "library_ms": lib_bwd})
+    del q, k, v, do, o, lse, dq, dk, dv, delta, q_, k_, v_, lib_out
+
+    # the LayerNorm op (row 5), forward and gradient
+    x, g, bt, dy = randn(b, t, c), randn(c), randn(c), randn(b, t, c)
+    y, mean, rstd = nk.fused_layer_norm_op(x, g, bt)
+    y_p, mean_p, rstd_p = nk.layer_norm_op_plain(x, g, bt)
+    err = max(max_err(y, y_p, TOL, "layer_norm_op"),
+              max_err(mean, mean_p, TOL, "ln op mean"),
+              max_err(rstd, rstd_p, TOL, "ln op rstd"))
+    xs = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
+          bt.clone().requires_grad_(True)]
+    got = torch.autograd.grad(nk.layer_norm_op(*xs), xs, dy)
+    want = torch.autograd.grad(nk.layer_norm_op_plain(*xs)[0], xs, dy)
+    for name, g_, w_ in zip(("dx", "dgamma", "dbeta"), got, want):
+        err = max(err, max_err(g_, w_, GRAD_TOL, "ln op " + name))
+    nb, by = bound((2 * x.numel() + 2 * c + 2 * b * t) * 4, 8 * x.numel())
+    rows.append({
+        "name": "layer_norm_op", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/norm_kernels.cu",
+        "replaces": "mxnet_tpu/ops/fused/norm_kernels.py:54",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda i: nk.fused_layer_norm_op(x, g, bt), 50),
+        "plain_ms": cuda_ms(lambda i: nk.layer_norm_op_plain(x, g, bt), 10),
+        "bound_ms": nb, "bound_by": by,
+        "library_ms": cuda_ms(
+            lambda i: F.layer_norm(x, (c,), g, bt, eps=1e-5), 50)})
+    print("  [layer_norm_op backward, plain PyTorch from the row stats] "
+          "%.4f ms" % events_ms(lambda: nk.layer_norm_op_backward(
+              dy, x, g, mean, rstd), 10))
+    xl = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
+          bt.clone().requires_grad_(True)]
+    print("  [forward + backward] layer_norm_op %.4f ms, F.layer_norm %.4f ms"
+          % (events_ms(lambda: torch.autograd.grad(
+              nk.layer_norm_op(*xs), xs, dy), 10),
+             events_ms(lambda: torch.autograd.grad(F.layer_norm(
+                 xl[0], (c,), xl[1], xl[2], eps=1e-5), xl, dy), 10)))
+    del x, dy, y, y_p, xs, got, want
+
+    # the momentum step (row 8): per-op on one tensor, then the
+    # multi-tensor entry over the bench model's parameter list
+    attrs = {"lr": 1e-3, "wd": 1e-4, "momentum": 0.9,
+             "rescale_grad": 1.0 / (b * t), "clip_gradient": -1.0}
+    w1, g1, m1 = randn(4 * c, c), randn(4 * c, c), randn(4 * c, c)
+    clipped = dict(attrs, rescale_grad=1.0, clip_gradient=0.5)
+    for at, tag in ((attrs, "sgd_mom_update"), (clipped, "sgd_mom clip")):
+        got = ok_.fused_sgd_mom_update(at, w1, g1, m1)
+        want = ok_.sgd_mom_update_plain(at, w1, g1, m1)
+        exact(got[0], want[0], tag + " w")
+        exact(got[1], want[1], tag + " m")
+    sym = tfm.get_symbol(**cfg)
+    shapes = infer(sym, {"data": (b, t), "softmax_label": (b, t)},
+                   {"data": "int32"})[0]
+    names = [n for n in sym.list_arguments() if n not in ("data",
+                                                          "softmax_label")]
+    pshapes = dict(zip(sym.list_arguments(), shapes))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def tree():
+        return {n: torch.randn(pshapes[n], device=dev, generator=gen)
+                for n in names}
+
+    params, grads, moms = tree(), tree(), tree()
+    nparams = sum(p.numel() for p in params.values())
+    err = 0.0
+    for flag in (True, False):
+        okt = torch.tensor(flag, device=dev)
+        want = ok_.sgd_mom_tree_stock(attrs, params, grads, moms, okt)
+        p2 = {n: t_.clone() for n, t_ in params.items()}
+        m2 = {n: t_.clone() for n, t_ in moms.items()}
+        ok_.fused_sgd_mom_tree(attrs, p2, grads, m2, okt)
+        for n in names:
+            err = max(err, (p2[n] - want[0][n]).abs().max().item(),
+                      (m2[n] - want[1][n]).abs().max().item())
+            if not (torch.equal(p2[n], want[0][n])
+                    and torch.equal(m2[n], want[1][n])):
+                raise SmokeError("sgd_mom_multi (ok=%s) differs from the "
+                                 "plain tree step at %s" % (flag, n))
+        print("  sgd_mom_multi  ok=%-5s %d tensors, %d elements: bitwise"
+              % (flag, len(names), nparams))
+        del want, p2, m2
+    table_rows, chunk0 = [], 0
+    for n in names:
+        table_rows.append((params[n].data_ptr(), grads[n].data_ptr(),
+                           moms[n].data_ptr(), params[n].numel(), chunk0))
+        chunk0 += -(-params[n].numel() // ok_._CHUNK)
+    table = torch.tensor(table_rows, dtype=torch.int64, device=dev)
+    scalars = ok_._scalars(attrs)
+    nb, by = bound(20 * nparams, 7 * nparams)
+    rows.append({
+        "name": "sgd_mom_multi", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/optimizer_kernels.cu",
+        "replaces": "mxnet_tpu/ops/fused/optimizer_kernels.py:44",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda i: ok_.SGD_MOM_MULTI.launch(
+            dev, table.data_ptr(), len(names), chunk0, None, *scalars), 10),
+        "plain_ms": cuda_ms(lambda i: ok_.sgd_mom_tree_stock(
+            attrs, params, grads, moms), 2),
+        "bound_ms": nb, "bound_by": by,
+        "library_ms": None})   # no one torch call does this update
+    print("  [sgd_mom_update per-op entry, [%d, %d]] %.4f ms"
+          % (4 * c, c, cuda_ms(lambda i: ok_.fused_sgd_mom_update(
+              attrs, w1, g1, m1), 50)))
+    return rows
+
+
 # ----------------------------------------------------------------- phase 4
 
 
@@ -378,7 +642,7 @@ def run_slice(dev, cfg, prompts, new_tokens, num_blocks, prefill_buckets,
                                    stats["tokens"], stats["occupancy"],
                                    stats["dispatch_errors"]))
     print("  launches in the run: %s" % json.dumps(counts))
-    missing = [n for n, c in counts.items() if c == 0]
+    missing = [n for n in LANE_KERNELS if counts[n] == 0]
     if dev.type == "cuda" and missing:
         raise SmokeError("kernels never launched on the main path: %s"
                          % missing)
@@ -498,6 +762,168 @@ def decode_breakdown(backend, reqs, card):
                  e.count // 3))
 
 
+# ------------------------------------------------------------ phases 5, 6
+
+# The card-versus-CPU step: the bench LM at full width, cut to 2 layers,
+# batch 1, T 512, so the CPU's plain versions take seconds.
+STEP_CHECK = dict(CFG, num_layers=2, seq_len=512)
+STEP_BATCH = 1
+# Per tensor, max |card - CPU| over max |CPU|.  The two devices sum in other
+# orders (matmuls over 1024-4096 terms, softmax over 32000); a naive fp32 sum
+# of n terms can be off by n * 6e-8 relative, 2e-3 at n = 32000, and the
+# typical error is far smaller.
+STEP_TOL = 1e-3
+DRIVE_STEPS = 5
+
+
+def _trainer(cfg, batch, device):
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    t = cfg["seq_len"]
+    return ShardedTrainer(
+        tfm.get_symbol(**cfg), None, data_shapes={"data": (batch, t)},
+        label_shapes={"softmax_label": (batch, t)},
+        type_dict={"data": "int32"}, learning_rate=1e-3, momentum=0.9,
+        rescale_grad=1.0 / (batch * t), device=device)
+
+
+def _host_batch(cfg, batch, seed):
+    rng = np.random.RandomState(seed)
+    v, t = cfg["num_classes"], cfg["seq_len"]
+    return {"data": rng.randint(0, v, (batch, t)).astype(np.int32),
+            "softmax_label": rng.randint(0, v, (batch, t))
+            .astype(np.float32)}
+
+
+def check_training_step(dev):
+    """One ShardedTrainer step on the card (kernels) and on the CPU (plain
+    versions) from the same init(seed) and batch: outputs, every updated
+    weight and every momentum must agree."""
+    import torch
+
+    host = _host_batch(STEP_CHECK, STEP_BATCH, SEED + 4)
+    res = []
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        tr = _trainer(STEP_CHECK, STEP_BATCH, device)
+        params, moms, aux = tr.init(seed=SEED)
+        outs, params, moms, _ = tr.step_fn()(params, moms, aux,
+                                             tr.place_batch(host))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        print("  step on %s: %.1f s (init included)"
+              % (device, time.perf_counter() - t0))
+        res.append(({"softmax_output": outs[0]}, params, moms))
+    worst = {}
+    for kind, got, want in zip(("output", "weight", "momentum"), res[0],
+                               res[1]):
+        for n in want:
+            g, w = got[n].cpu().double(), want[n].double()
+            rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)
+                   ).item()
+            if not np.isfinite(rel) or rel > STEP_TOL:
+                raise SmokeError("training step: %s %s differs between "
+                                 "card and CPU by %.3e of its largest value"
+                                 % (kind, n, rel))
+            worst[kind] = max(worst.get(kind, 0.0), rel)
+    print("  card vs CPU, one step of %d layers d%d T%d: max |err| / max "
+          "|CPU| outputs %.3e, weights %.3e, momenta %.3e (tolerance %.0e)"
+          % (STEP_CHECK["num_layers"], STEP_CHECK["num_embed"],
+             STEP_CHECK["seq_len"], worst["output"], worst["weight"],
+             worst["momentum"], STEP_TOL))
+
+
+_OWN_KERNELS = ("flash_prefill_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_dq_kernel", "layer_norm_op_kernel",
+                "sgd_mom_multi_kernel")
+
+
+def _kernel_group(name):
+    if any(k in name for k in _OWN_KERNELS):
+        return "port kernels"
+    if "gemm" in name or "cutlass" in name or "splitK" in name:
+        return "cuBLAS"
+    return "other PyTorch"
+
+
+def run_training(dev, cfg, card):
+    """The training drive: the bench configuration at full depth, one
+    warm-up step and DRIVE_STEPS timed steps on one seeded batch, through
+    get_symbol -> ShardedTrainer -> init -> place_batch -> step_fn."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tokens = TRAIN_BATCH * cfg["seq_len"]
+    host = _host_batch(cfg, TRAIN_BATCH, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    # -- the main path: entry points a user calls ------------------------
+    t0 = time.perf_counter()
+    tr = _trainer(cfg, TRAIN_BATCH, dev)
+    params, moms, aux = tr.init(seed=SEED)
+    batch = tr.place_batch(host)
+    step = tr.step_fn()
+    print("  %d parameters, init %.1f s"
+          % (sum(p.numel() for p in params.values()),
+             time.perf_counter() - t0))
+    lab = batch["softmax_label"].reshape(-1).long()
+    losses, step_ms = [], []
+    for i in range(1 + DRIVE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, params, moms, aux = step(params, moms, aux, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        # cross-entropy of this step's forward, from the probabilities
+        ce = -outs[0].gather(1, lab[:, None]).double().log().mean().item()
+        print("  step %d%s: %.1f ms, cross-entropy %.6f"
+              % (i, " (warm-up)" if i == 0 else "", ms, ce))
+        if i:
+            losses.append(ce)
+            step_ms.append(ms)
+    counts = launch_counts()
+    # -- end of the main path -------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SmokeError("training losses %s: not finite and falling"
+                         % losses)
+    p50 = float(np.percentile(step_ms, 50))
+    per_step = {n: c / (1 + DRIVE_STEPS) for n, c in counts.items() if c}
+    print("  [%s] step ms p50 %.1f (%s), tokens/s %.0f, peak memory %.2f "
+          "GB" % (card, p50, ", ".join("%.1f" % m for m in step_ms),
+                  tokens / p50 * 1e3, peak / 1e9))
+    print("  launches per step: %s" % json.dumps(per_step))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, moms, aux, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        print("  device time by kernel: not measured (no CUDA events)")
+        return counts
+    print("  [%s] one profiled step: %.1f ms of kernels on the card against "
+          "the p50 step of %.1f ms: the card idles %.1f%% of the step"
+          % (card, busy, p50, 100.0 * max(0.0, 1 - busy / p50)))
+    groups = {}
+    for e in kernels:
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    print("  by group: %s" % ", ".join("%s %.1f ms" % kv for kv in
+                                       sorted(groups.items(),
+                                              key=lambda kv: -kv[1])))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
+        print("    %-62s %8.2f ms %5d launches"
+              % (e.key[:62], e.self_device_time_total / 1e3, e.count))
+    return counts
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -524,19 +950,31 @@ def main():
     print("== phase 2: build the CUDA kernels")
     secs = _build.build_all()
     print("  built/loaded in %.2f s" % secs)
-    for name in ("attention_kernels", "norm_kernels"):
+    for name in _build._sources():
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print("  %s: %s" % (name, line.strip()))
+            mangled = re.search(r"Compiling entry function '(\w+)'", line)
+            entry = mangled and re.search(
+                r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E|E)", mangled.group(1))
+            if entry:
+                print("  %s: %s%s" % (name, entry.group(1),
+                                      "<%s>" % entry.group(2)
+                                      if entry.group(2) else ""))
+            elif "registers" in line or "spill" in line:
+                print("  %s:   %s" % (name, line.strip()))
 
     print("== phase 3: kernels against their plain versions")
-    rows = check_kernels(dev, CFG)
-    for r in rows:
-        print("  [%s] %-14s kernel %.4f ms  plain %.4f ms  library %s  "
-              "bound %.4f ms (%s)"
-              % (card, r["name"], r["ms"], r["plain_ms"],
-                 "%.4f ms" % r["library_ms"] if r["library_ms"] is not None
-                 else "none", r["bound_ms"], r["bound_by"]))
+    lane_rows = check_kernels(dev, CFG)
+    train_rows = check_training_kernels(dev, CFG)
+    for shape, rs in (("lane", lane_rows), ("training", train_rows)):
+        for r in rs:
+            print("  [%s] %-14s at the %s's shape: kernel %.4f ms  plain "
+                  "%.4f ms  library %s  bound %.4f ms (%s)"
+                  % (card, r["name"], shape, r["ms"], r["plain_ms"],
+                     "%.4f ms" % r["library_ms"]
+                     if r["library_ms"] is not None else "none",
+                     r["bound_ms"], r["bound_by"]))
+    # flash_prefill runs on both paths: its line is the training shape's
+    rows = [r for r in lane_rows if r["name"] != "flash_prefill"] + train_rows
     torch.cuda.synchronize()
 
     print("== phase 4: generation lane, %d layers, d%d, vocab %d"
@@ -544,8 +982,20 @@ def main():
     counts = run_slice(dev, CFG, PROMPTS, NEW_TOKENS, NUM_BLOCKS,
                        PREFILL_BUCKETS, DECODE_BUCKETS, CHECKED, card)
 
+    print("== phase 5: one training step, card against CPU")
+    check_training_step(dev)
+
+    print("== phase 6: training, %d layers, d%d, batch %d, T %d"
+          % (CFG["num_layers"], CFG["num_embed"], TRAIN_BATCH,
+             CFG["seq_len"]))
+    train_counts = run_training(dev, CFG, card)
+
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = counts[r["name"]] + train_counts[r["name"]]
+    missing = [r["name"] for r in rows if not r["launches"]]
+    if missing:
+        raise SmokeError("kernels never launched on a main path: %s"
+                         % missing)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

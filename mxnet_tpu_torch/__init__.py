@@ -1,21 +1,25 @@
 """mxnet_tpu_torch: the PyTorch/CUDA port of ``mxnet_tpu``.
 
-A second package beside the JAX one, with the same module names.  This
-slice serves the transformer LM through the autoregressive generation
-lane (:mod:`.serving.generation`) on an NVIDIA Hopper card, with four
-kernels written by hand in CUDA C++ (``csrc/``): flash prefill attention,
-block-table paged decode attention, the LM layer norm and the FFN's
-GELU+bias epilogue.  Entry points run on the card unless the caller
-passes ``device="cpu"``; on CPU tensors every kernel wrapper runs its
-plain PyTorch version instead.
+A second package beside the JAX one, with the same module names.  It
+serves the transformer LM through the autoregressive generation lane
+(:mod:`.serving.generation`) and trains it through Symbol → graph function
+→ :class:`~.parallel.ShardedTrainer` on an NVIDIA Hopper card, with
+kernels written by hand in CUDA C++ (``csrc/``): flash attention forward
+and backward, block-table paged decode attention, the LM layer norm, the
+FFN's GELU+bias epilogue, the ``LayerNorm`` op and the SGD-momentum step.
+Entry points run on the card unless the caller passes ``device="cpu"``;
+on CPU tensors every kernel wrapper runs its plain PyTorch version
+instead.
 
 The package imports ``torch`` and ``numpy``, never ``jax`` and nothing of
 ``mxnet_tpu``.
 """
 
-from . import base, context, models, ops, serving
+from . import (attribute, base, context, executor, initializer, models,
+               name, ops, parallel, serving, symbol)
 from .base import MXNetError
 from .context import resolve_device
 
-__all__ = ["MXNetError", "base", "context", "models", "ops",
-           "resolve_device", "serving"]
+__all__ = ["MXNetError", "attribute", "base", "context", "executor",
+           "initializer", "models", "name", "ops", "parallel",
+           "resolve_device", "serving", "symbol"]

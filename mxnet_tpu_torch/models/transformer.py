@@ -1,7 +1,13 @@
-"""Decoder-only transformer LM: the functional serving path.
+"""Decoder-only transformer LM: the training symbol and the functional
+serving path.
 
-Counterpart of the functional half of ``mxnet_tpu/models/transformer.py``
-(``lm_config``, ``init_lm_params``, ``lm_prefill``, ``lm_decode_step``).
+:func:`get_symbol` is the JAX package's ``get_symbol`` (the graph that
+``bench.py`` trains through ``ShardedTrainer``), for a dense FFN, a
+softmax head, no rematerialization and fp32; its other values raise.
+
+The rest is the counterpart of the functional half of
+``mxnet_tpu/models/transformer.py`` (``lm_config``, ``init_lm_params``,
+``lm_prefill``, ``lm_decode_step``).
 Parameters are a dict under the JAX package's checkpoint names
 (``embed_weight``, ``pos_embed_weight`` ``[1, T, C]``, ``l0_ln1_gamma``,
 ``l0_attn_qkv_weight`` ``[3C, C]``, ..., ``pred_weight``), in the same
@@ -28,12 +34,57 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import symbol as sym
+from ..base import MXNetError
 from ..context import resolve_device
 from ..ops.attention import paged_decode_attention, stable_causal_attention
 from ..ops.fused.norm_kernels import lm_gelu_bias, lm_layer_norm
 
-__all__ = ["TransformerLM", "init_lm_params", "lm_config", "lm_decode_step",
-           "lm_prefill", "params_from_jax", "params_to_numpy"]
+__all__ = ["TransformerLM", "get_symbol", "init_lm_params", "lm_config",
+           "lm_decode_step", "lm_prefill", "params_from_jax",
+           "params_to_numpy"]
+
+
+def get_symbol(num_classes=32000, seq_len=1024, num_embed=512, num_heads=8,
+               num_layers=6, dropout=0.0, causal=True,
+               context_parallel_axis="", dtype="float32", head="softmax",
+               remat="none", ffn="dense", **kwargs):
+    """The LM's training graph: inputs ``data`` ``(batch, seq_len)`` int
+    tokens and ``softmax_label`` ``(batch, seq_len)``; pre-norm blocks of
+    ``LayerNorm`` → ``MultiHeadAttention`` → residual, ``LayerNorm`` →
+    FFN (4x, tanh GELU) → residual; a final ``LayerNorm``, the vocab
+    projection ``pred`` and one ``SoftmaxOutput`` head named ``softmax``.
+    Parameter names and shapes are the JAX package's."""
+    unported = {"dropout": dropout > 0, "dtype": dtype != "float32",
+                "head": head != "softmax", "remat": remat != "none",
+                "ffn": ffn != "dense",
+                "context_parallel_axis": bool(context_parallel_axis)}
+    for knob, given in unported.items():
+        if given:
+            raise MXNetError("transformer.get_symbol %s=%r is not ported yet"
+                             % (knob, locals().get(knob, kwargs.get(knob))))
+    data = sym.Variable("data")
+    x = sym.Embedding(data=data, input_dim=num_classes, output_dim=num_embed,
+                      name="embed")
+    pos = sym.Variable("pos_embed_weight", shape=(1, seq_len, num_embed))
+    x = sym.broadcast_add(x, pos)
+    for i in range(num_layers):
+        h = sym.LayerNorm(x, name="l%d_ln1" % i)
+        h = sym.MultiHeadAttention(h, num_heads=num_heads, causal=causal,
+                                   name="l%d_attn" % i)
+        x = x + h
+        h = sym.LayerNorm(x, name="l%d_ln2" % i)
+        h = sym.FullyConnected(h, num_hidden=4 * num_embed, flatten=False,
+                               name="l%d_ffn1" % i)
+        h = sym.Activation(h, act_type="gelu", name="l%d_gelu" % i)
+        h = sym.FullyConnected(h, num_hidden=num_embed, flatten=False,
+                               name="l%d_ffn2" % i)
+        x = x + h
+    x = sym.LayerNorm(x, name="final_ln")
+    pred = sym.Reshape(x, shape=(-1, num_embed))
+    label = sym.Reshape(sym.Variable("softmax_label"), shape=(-1,))
+    pred = sym.FullyConnected(pred, num_hidden=num_classes, name="pred")
+    return sym.SoftmaxOutput(data=pred, label=label, name="softmax")
 
 
 def lm_config(num_classes=128, seq_len=64, num_embed=32, num_heads=4,

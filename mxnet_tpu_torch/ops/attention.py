@@ -1,10 +1,19 @@
-"""Shape-stable attention for the generation lane: plain versions and the
-public entry points.
+"""Attention: the generation lane's shape-stable entry points, flash
+attention with its gradient, and the ``LayerNorm`` and
+``MultiHeadAttention`` symbol ops.
 
-Counterpart of the generation-lane half of ``mxnet_tpu/ops/attention.py``
-(``stable_causal_attention``, ``paged_decode_attention``).  The public
-functions run the CUDA kernels of :mod:`.fused.attention_kernels` for CUDA
-tensors and the plain versions below for CPU tensors.
+Counterpart of ``mxnet_tpu/ops/attention.py``: the generation lane's
+``stable_causal_attention`` and ``paged_decode_attention``; the training
+path's ``flash_attention`` (a ``torch.autograd.Function`` whose forward is
+the flash kernel with its log-sum-exp and whose backward is the dK/dV
+kernel, then the dQ kernel); and the registry ops ``LayerNorm`` and
+``MultiHeadAttention``.  The public functions run the CUDA kernels of
+:mod:`.fused` for CUDA tensors and the plain versions below for CPU
+tensors.
+
+The training path's plain versions (:func:`flash_fwd_plain`,
+:func:`flash_bwd_plain`) are the textbook spelling with ``torch.matmul``:
+they carry no decode contract.  The generation lane's are the ones below.
 
 The plain versions keep the JAX package's promise within the port: the
 bits of a query row do not depend on how many query rows ride along or on
@@ -24,8 +33,13 @@ masked keys add exact zeros wherever the row ends.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_plain",
+from ..base import MXNetError
+from .registry import P, register
+
+__all__ = ["flash_attention", "flash_bwd_plain", "flash_fwd_plain",
+           "paged_decode_attention", "paged_decode_attention_plain",
            "stable_causal_attention", "stable_causal_attention_plain"]
 
 _NEG_INF = -1e30
@@ -114,3 +128,140 @@ def paged_decode_attention(q, k_step, v_step, k_pages, v_pages,
     return fused_paged_decode_attention(
         q.contiguous(), k_step.contiguous(), v_step.contiguous(), k_pages,
         v_pages, block_tables, context_lens, sm_scale=sm_scale)
+
+
+# ----------------------------------------------------------------------
+# flash attention with its gradient (the training path)
+# ----------------------------------------------------------------------
+
+
+def _flash_scores(q, k, causal, scale):
+    """fp32 ``[B, H, T, Tk]`` scaled scores; under ``causal`` key ``j`` is
+    masked from query ``i`` when ``j > i`` (the JAX kernel's mask, with
+    no offset when ``Tk != T``)."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        tq, tk = q.shape[2], k.shape[2]
+        above = (torch.arange(tk, device=q.device)[None, :]
+                 > torch.arange(tq, device=q.device)[:, None])
+        s = s.masked_fill(above, _NEG_INF)
+    return s
+
+
+def flash_fwd_plain(q, k, v, causal=True, sm_scale=None):
+    """Exact softmax attention → ``(o, lse)``: ``lse [B, H, T]`` is
+    ``m + log(l)`` over the scaled scores, as the JAX package's
+    ``_attention_fwd_ref(..., return_lse=True)``."""
+    s = _flash_scores(q, k, causal, _scale(q, sm_scale))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return torch.matmul(p / l, v), (m + torch.log(l))[..., 0]
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, causal=True, sm_scale=None):
+    """``(dq, dk, dv)`` from the forward's ``lse``: ``p = exp(s - lse)``,
+    ``ds = p * (dp - delta) * scale`` with ``delta = rowsum(do * o)``, the
+    math of the JAX package's ``_bwd_p_ds``."""
+    scale = _scale(q, sm_scale)
+    p = torch.exp(_flash_scores(q, k, causal, scale) - lse[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash kernel with its lse (saved, never recomputed).
+    Backward: the dK/dV kernel, then the dQ kernel.  Autograd runs the
+    backward on its own thread; the kernels launch on the device's current
+    stream there, as everywhere."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        from .fused.attention_kernels import fused_flash_fwd
+
+        o, lse = fused_flash_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from .fused.attention_kernels import fused_flash_bwd
+
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = fused_flash_bwd(q, k, v, o, lse, do.contiguous(),
+                                     ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None):
+    """Softmax attention over ``[B, H, T, D]`` tensors (``k``/``v`` may be
+    longer or shorter than ``q``), differentiable.  CUDA tensors run the
+    flash kernels in both directions; CPU tensors the plain versions.
+    Meta tensors (shape inference) give an empty output of the shape."""
+    if q.is_meta:
+        return torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                           device="meta")
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), bool(causal),
+                                 float(_scale(q, sm_scale)))
+
+
+# ----------------------------------------------------------------------
+# symbol ops: LayerNorm, MultiHeadAttention
+# ----------------------------------------------------------------------
+
+
+@register("LayerNorm", arg_names=["data", "gamma", "beta"],
+          params={"axis": P("int", -1), "eps": P("float", 1e-5)})
+def _layer_norm(attrs, data, gamma, beta):
+    """Layer norm over ``axis``: population variance, ``rsqrt``, affine
+    (the JAX op's spelling), with a gradient; fp32 only."""
+    from .fused.norm_kernels import layer_norm_op
+
+    if data.dtype != torch.float32:
+        raise MXNetError("LayerNorm: the port's training path is fp32, got "
+                         "%s" % data.dtype)
+    axis = attrs["axis"] % data.dim()
+    if axis == data.dim() - 1:
+        return layer_norm_op(data, gamma, beta, attrs["eps"])
+    x = data.movedim(axis, -1)
+    return layer_norm_op(x, gamma, beta, attrs["eps"]).movedim(-1, axis)
+
+
+def _mha_input_names(attrs):
+    names = ["data", "qkv_weight", "out_weight"]
+    if not attrs.get("no_bias", True):
+        names += ["qkv_bias", "out_bias"]
+    return names
+
+
+@register("MultiHeadAttention", aliases=["_contrib_MultiHeadAttention"],
+          arg_names=["data", "qkv_weight", "out_weight"],
+          input_names_fn=_mha_input_names,
+          params={"num_heads": P("int", required=True),
+                  "causal": P("bool", False),
+                  "no_bias": P("bool", True),
+                  "context_parallel_axis": P("str", ""),
+                  "interpret": P("bool", False)})
+def _multi_head_attention(attrs, data, qkv_weight, out_weight,
+                          qkv_bias=None, out_bias=None):
+    """Self-attention on ``[B, T, C]``: fused QKV projection, flash
+    attention, output projection.  Ring attention over a mesh axis
+    (``context_parallel_axis``) is a later slice and raises.
+    ``interpret`` (the JAX package's Pallas interpret switch) changes
+    nothing here."""
+    if attrs["context_parallel_axis"]:
+        raise MXNetError("MultiHeadAttention: context_parallel_axis=%r "
+                         "(ring attention) is not ported yet"
+                         % attrs["context_parallel_axis"])
+    b, t, c = data.shape
+    h = attrs["num_heads"]
+    qkv = F.linear(data, qkv_weight, qkv_bias)
+    qkv = qkv.reshape(b, t, 3, h, c // h).permute(2, 0, 3, 1, 4)
+    out = flash_attention(qkv[0], qkv[1], qkv[2], causal=attrs["causal"])
+    out = out.transpose(1, 2).reshape(b, t, c)
+    return F.linear(out, out_weight, out_bias)

@@ -1,13 +1,16 @@
-"""Flash prefill and paged decode attention: CUDA kernel wrappers.
+"""Flash attention and paged decode attention: CUDA kernel wrappers.
 
 Counterpart of ``mxnet_tpu/ops/fused/attention_kernels.py``
-(``fused_prefill_attention``, ``fused_paged_decode_attention``).  The
+(``fused_prefill_attention``, ``fused_paged_decode_attention``) and of the
+Pallas flash forward and backward of ``mxnet_tpu/ops/attention.py``
+(``_flash_fwd_pallas`` with ``return_lse``, ``_flash_bwd_pallas``).  The
 kernels are in ``csrc/attention_kernels.cu``; the plain versions, which a
 CPU tensor gets, are in :mod:`mxnet_tpu_torch.ops.attention`.
 
-The flash kernel reorders the softmax sums (online softmax over key
-tiles), so it agrees with the plain version to fp32 rounding, not
-bitwise; the paged decode kernel likewise sums in its own order.
+The flash kernels reorder the softmax sums (online softmax over key
+tiles; the backward sums its gradients tile by tile), so they agree with
+the plain versions to fp32 rounding, not bitwise; the paged decode kernel
+likewise sums in its own order.
 """
 
 from __future__ import annotations
@@ -20,15 +23,23 @@ from ...base import MXNetError
 from .. import attention as _att
 from .._build import Kernel, device_kind, require
 
-__all__ = ["FLASH_PREFILL", "PAGED_DECODE", "fused_paged_decode_attention",
+__all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DQ", "FLASH_PREFILL", "PAGED_DECODE",
+           "fused_flash_bwd", "fused_flash_fwd", "fused_paged_decode_attention",
            "fused_prefill_attention"]
 
 _HEAD_DIMS = (32, 64, 128)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 FLASH_PREFILL = Kernel(
     "flash_prefill", "attention_kernels", "mxtpu_flash_prefill",
-    [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F])
+FLASH_BWD_DKDV = Kernel(
+    "flash_bwd_dkdv", "attention_kernels", "mxtpu_flash_bwd_dkdv",
+    [_P] * 8 + [_I] * 6 + [_F])
+FLASH_BWD_DQ = Kernel(
+    "flash_bwd_dq", "attention_kernels", "mxtpu_flash_bwd_dq",
+    [_P] * 7 + [_I] * 6 + [_F])
 PAGED_DECODE = Kernel(
     "paged_decode", "attention_kernels", "mxtpu_paged_decode",
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float])
@@ -44,17 +55,76 @@ def fused_prefill_attention(q, k, v, sm_scale=None):
     """
     if device_kind((q, k, v)) == "cpu":
         return _att.stable_causal_attention_plain(q, k, v, sm_scale=sm_scale)
-    if q.dim() != 4 or q.shape[-1] not in _HEAD_DIMS:
-        raise MXNetError("flash_prefill: q must be [B, H, T, D] with D in "
-                         "%s, got %s" % (_HEAD_DIMS, tuple(q.shape)))
-    for t in (q, k, v):
-        require("flash_prefill", t, torch.float32, q.shape, align=16)
+    _check_flash("flash_prefill", q, k, v, same_length=True)
     bsz, heads, t_len, dim = q.shape
-    scale = 1.0 / float(dim) ** 0.5 if sm_scale is None else float(sm_scale)
     out = torch.empty_like(q)
     FLASH_PREFILL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), bsz, heads, t_len, dim, scale)
+                         out.data_ptr(), None, bsz, heads, t_len, t_len, dim,
+                         1, _att._scale(q, sm_scale))
     return out
+
+
+def _check_flash(name, q, k, v, same_length=False):
+    if q.dim() != 4 or q.shape[-1] not in _HEAD_DIMS:
+        raise MXNetError("%s: q must be [B, H, T, D] with D in %s, got %s"
+                         % (name, _HEAD_DIMS, tuple(q.shape)))
+    kshape = q.shape if same_length else q.shape[:2] + (k.shape[2],) \
+        + q.shape[3:]
+    require(name, q, torch.float32, align=16)
+    for t in (k, v):
+        require(name, t, torch.float32, kshape, align=16)
+
+
+def fused_flash_fwd(q, k, v, causal=True, sm_scale=None):
+    """Flash attention forward ``q [B, H, T, D]``, ``k``/``v`` ``[B, H,
+    Tk, D]`` → ``(o [B, H, T, D], lse [B, H, T])``, fp32; ``lse`` is the
+    natural log of each row's softmax denominator over the scaled scores
+    (the backward's input).  ``causal`` masks key ``j`` from query ``i``
+    when ``j > i``.
+
+    CPU tensors: :func:`~mxnet_tpu_torch.ops.attention.flash_fwd_plain`.
+    CUDA tensors: the flash kernel (contiguous fp32, D in 32/64/128)."""
+    if device_kind((q, k, v)) == "cpu":
+        return _att.flash_fwd_plain(q, k, v, causal, sm_scale)
+    _check_flash("flash_prefill", q, k, v)
+    bsz, heads, t_len, dim = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    FLASH_PREFILL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), lse.data_ptr(), bsz, heads, t_len,
+                         k.shape[2], dim, int(bool(causal)),
+                         _att._scale(q, sm_scale))
+    return out, lse
+
+
+def fused_flash_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None):
+    """Flash attention backward → ``(dq, dk, dv)`` from the forward's
+    inputs, its output ``o``, its ``lse`` and the output gradient ``do``.
+
+    CPU tensors: :func:`~mxnet_tpu_torch.ops.attention.flash_bwd_plain`.
+    CUDA tensors: ``delta = rowsum(do * o)`` as a torch expression (the
+    JAX wrapper also computes it outside its kernels), then the dK/dV
+    kernel and the dQ kernel, each writing only its own rows."""
+    if device_kind((q, k, v, o, lse, do)) == "cpu":
+        return _att.flash_bwd_plain(q, k, v, o, lse, do, causal, sm_scale)
+    _check_flash("flash_bwd", q, k, v)
+    for t in (o, do):
+        require("flash_bwd", t, torch.float32, q.shape, align=16)
+    require("flash_bwd", lse, torch.float32, q.shape[:3])
+    bsz, heads, t_len, dim = q.shape
+    tk_len = k.shape[2]
+    scale = _att._scale(q, sm_scale)
+    delta = (do * o).sum(-1)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    dims = (bsz, heads, t_len, tk_len, dim, int(bool(causal)), scale)
+    FLASH_BWD_DKDV.launch(q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
+                          *dims)
+    FLASH_BWD_DQ.launch(q.device, *ptrs, dq.data_ptr(), *dims)
+    return dq, dk, dv
 
 
 def fused_paged_decode_attention(q, k_step, v_step, k_pages, v_pages,

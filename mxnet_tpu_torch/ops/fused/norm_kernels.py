@@ -1,9 +1,17 @@
-"""LM layer norm and GELU+bias epilogue: CUDA kernels and plain versions.
+"""Layer norms and the GELU+bias epilogue: CUDA kernels and plain versions.
 
-Counterpart of ``mxnet_tpu/ops/fused/norm_kernels.py`` (``fused_lm_layer_norm``
-and ``fused_lm_gelu_bias``).  The kernels are in ``csrc/norm_kernels.cu``.
-:func:`lm_layer_norm` and :func:`lm_gelu_bias` run the kernel for a CUDA
-tensor and the plain version for a CPU tensor.
+Counterpart of ``mxnet_tpu/ops/fused/norm_kernels.py`` (``fused_lm_layer_norm``,
+``fused_lm_gelu_bias`` and ``fused_layer_norm_op``).  The kernels are in
+``csrc/norm_kernels.cu``.  :func:`lm_layer_norm`, :func:`lm_gelu_bias` and
+:func:`fused_layer_norm_op` run the kernel for a CUDA tensor and the plain
+version for a CPU tensor.
+
+:func:`layer_norm_op` is the ``LayerNorm`` registry op's differentiable
+form: a ``torch.autograd.Function`` whose forward is the kernel (it also
+writes each row's mean and 1/std) and whose backward is the plain PyTorch
+formula from those statistics.  The JAX package's Pallas LayerNorm has no
+gradient rule (``jax.grad`` through it fails to linearize, so its trainer
+falls back to the stock op); the port's kernel is on the training path.
 """
 
 from __future__ import annotations
@@ -16,8 +24,10 @@ import torch.nn.functional as F
 from ...base import MXNetError
 from .._build import Kernel, device_kind, require
 
-__all__ = ["LM_GELU_BIAS", "LM_LAYER_NORM", "lm_gelu_bias",
-           "lm_gelu_bias_plain", "lm_layer_norm", "lm_layer_norm_plain"]
+__all__ = ["LAYER_NORM_OP", "LM_GELU_BIAS", "LM_LAYER_NORM",
+           "fused_layer_norm_op", "layer_norm_op", "layer_norm_op_backward",
+           "layer_norm_op_plain", "lm_gelu_bias", "lm_gelu_bias_plain",
+           "lm_layer_norm", "lm_layer_norm_plain"]
 
 _LN_EPS = 1e-5   # the JAX package's transformer._LN_EPS
 
@@ -28,6 +38,9 @@ LM_LAYER_NORM = Kernel(
 LM_GELU_BIAS = Kernel(
     "lm_gelu_bias", "norm_kernels", "mxtpu_lm_gelu_bias",
     [_P, _P, _P, ctypes.c_longlong, ctypes.c_int])
+LAYER_NORM_OP = Kernel(
+    "layer_norm_op", "norm_kernels", "mxtpu_layer_norm_op",
+    [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float])
 
 
 def lm_layer_norm_plain(x, gamma, beta):
@@ -76,3 +89,73 @@ def lm_gelu_bias(h, bias):
     LM_GELU_BIAS.launch(h.device, h.data_ptr(), bias.data_ptr(),
                         out.data_ptr(), h.numel(), f)
     return out
+
+
+def layer_norm_op_plain(x, gamma, beta, eps=_LN_EPS):
+    """The ``LayerNorm`` op over the last axis → ``(y, mean, rstd)``,
+    ``mean``/``rstd`` fp32 ``[rows]``: ``(x - mean) * rsqrt(var + eps) *
+    gamma + beta``, population variance (``ops/attention.py
+    _layer_norm``'s spelling)."""
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = (x - mean) * rstd * gamma + beta
+    return y, mean.reshape(-1), rstd.reshape(-1)
+
+
+def fused_layer_norm_op(x, gamma, beta, eps=_LN_EPS):
+    """``(y, mean, rstd)`` of the ``LayerNorm`` op on fp32 ``x [..., C]``
+    (kernel for CUDA tensors, :func:`layer_norm_op_plain` for CPU ones)."""
+    if device_kind((x, gamma, beta)) == "cpu":
+        return layer_norm_op_plain(x, gamma, beta, eps)
+    for t in (x, gamma, beta):
+        require("layer_norm_op", t, torch.float32)
+    cols = x.shape[-1]
+    if gamma.shape != (cols,) or beta.shape != (cols,):
+        raise MXNetError("layer_norm_op: gamma/beta %s/%s do not match C=%d"
+                         % (tuple(gamma.shape), tuple(beta.shape), cols))
+    rows = x.numel() // cols
+    y = torch.empty_like(x)
+    mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    LAYER_NORM_OP.launch(x.device, x.data_ptr(), gamma.data_ptr(),
+                         beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
+                         rstd.data_ptr(), rows, cols, float(eps))
+    return y, mean, rstd
+
+
+def layer_norm_op_backward(dy, x, gamma, mean, rstd):
+    """``(dx, dgamma, dbeta)`` of the ``LayerNorm`` op from the forward's
+    row statistics (plain PyTorch on either device)."""
+    cols = x.shape[-1]
+    mean = mean.reshape(x.shape[:-1] + (1,))
+    rstd = rstd.reshape(x.shape[:-1] + (1,))
+    xhat = (x - mean) * rstd
+    dxhat = dy * gamma
+    dgamma = (dy * xhat).reshape(-1, cols).sum(0)
+    dbeta = dy.reshape(-1, cols).sum(0)
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, dgamma, dbeta
+
+
+class _LayerNormOp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, rstd = fused_layer_norm_op(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_op_backward(dy, x, gamma, mean, rstd)
+        return dx, dgamma, dbeta, None
+
+
+def layer_norm_op(x, gamma, beta, eps=_LN_EPS):
+    """Differentiable ``LayerNorm`` over the last axis of fp32 ``x``.
+    Meta tensors (shape inference) give an empty output of the shape."""
+    if x.is_meta:
+        return torch.empty_like(x)
+    return _LayerNormOp.apply(x.contiguous(), gamma, beta, float(eps))

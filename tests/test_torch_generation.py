@@ -180,7 +180,13 @@ def test_backend_needs_cuda_unless_cpu_is_asked_for(lm, monkeypatch):
 
 
 def test_package_imports_neither_jax_nor_mxnet_tpu():
-    code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving; "
+    """Every module of the package (walked, so new ones are covered) and
+    chip_smoke.py import neither jax nor anything of mxnet_tpu."""
+    code = ("import importlib, pkgutil, sys, mxnet_tpu_torch, chip_smoke; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "mxnet_tpu_torch.__path__, 'mxnet_tpu_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "assert len(mods) > 20, mods; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
