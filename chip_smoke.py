@@ -10,12 +10,14 @@ Phases, each fatal on failure:
 2. Build every CUDA kernel from ``mxnet_tpu_torch/csrc`` (timed; one
    ``nvcc`` per source, all at once).
 3. Each kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it (the generation lane's, and the bench training
+   shapes its path gives it (the generation lane's; the bench LM training
    step's: q, k, v [8, 16, 2048, 64] causal, the LayerNorm op on
    [8, 2048, 1024], the momentum step over every parameter of the bench
-   model) and at a ragged shape, with its time, the plain version's time,
-   the time of one library call computing the same function where there is
-   one, and the least time the card could take (its bound).
+   model; the 1x1-conv dgrad at each of the 12 shapes of the bench ResNet-50
+   step in bf16, one fp32 shape and ragged ones; the probe's two epilogue
+   GEMMs at its five shapes) and at a ragged shape, with its time, the plain
+   version's time, the time of one library call computing the same function
+   where there is one, and the least time the card could take (its bound).
 4. The generation lane at the full width of the LM the repo benches
    (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
    vocab 32000, seq_len 2048), fp32, random weights from a seed: an
@@ -29,16 +31,35 @@ Phases, each fatal on failure:
 5. One ``ShardedTrainer`` step of the LM at full width cut to 2 layers,
    batch 1, T 512, on the card and on the CPU (plain versions) from the
    same ``init(seed=0)`` and batch: outputs, weights and momenta agree.
-6. Training the bench configuration (12 layers, batch 8, T 2048, SGD
+6. Training the bench LM configuration (12 layers, batch 8, T 2048, SGD
    momentum 0.9, lr 1e-3, fp32) through ``get_symbol`` ->
    ``ShardedTrainer`` -> ``init`` -> ``place_batch`` -> ``step_fn``: one
    warm-up step and 5 timed steps on one seeded batch, whose losses must be
    finite and falling; step time, tokens/s, peak memory, launches per step
    and, from one profiled step, the card's idle share and its time by
    kernel.  Counts are zeroed just before and read just after.
-7. One JSON line ``{"kernels": [...]}`` with each kernel's launches (both
-   paths'; every kernel must have launched), error and times.
-8. The card line again and, last, ``{"ok": true, "device": {...}}``.
+7. One ``ShardedTrainer`` step of ResNet-50 at full width, 64 px, batch 2,
+   fp32, from the same ``init(seed=0)`` and batch: on the card under
+   ``MXTPU_CONV1X1`` = pallas, dot and unset, on the CPU in fp32 and
+   float64.  Outputs and BatchNorm's moving statistics agree with the CPU's
+   fp32 step; weights and momenta of the card's modes (one forward, the
+   same ReLU gates) agree with each other; and those of the card and the
+   CPU agree on every tensor that no ReLU gate differing between the two
+   forwards is computed from.
+8. Training the bench ResNet-50 (``bench.py``: 224 px, batch 128, bf16,
+   NHWC, s2d stem, SGD momentum 0.9, lr 0.1, wd 1e-4) through
+   ``get_symbol`` -> ``ShardedTrainer``, with ``MXTPU_CONV1X1=pallas`` and
+   then unset: one warm-up and 5 timed steps each on one seeded batch,
+   losses finite and the last below the warm-up's, no NHWC tensor copied
+   into row-major order; step time, images/s, peak memory, launches per
+   step (the 1x1 dgrad kernel 33 a step under ``pallas``, none unset), the
+   idle share and time by kernel and by op.
+9. The port's bottleneck probe (``mxnet_tpu_torch.tools.bottleneck_probe
+   .main``): cuBLAS plus elementwise against the epilogue kernels at its
+   five ResNet-50 shapes.
+10. One JSON line ``{"kernels": [...]}`` with each kernel's launches (its
+    paths'; every kernel must have launched), error and times.
+11. The card line again and, last, ``{"ok": true, "device": {...}}``.
 
 It imports only ``mxnet_tpu_torch``, ``torch`` and ``numpy``, and exits
 non-zero, printing no result, when CUDA is not available or the package is
@@ -48,6 +69,7 @@ not beside it.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -57,10 +79,11 @@ import time
 import numpy as np
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
-# rate, and the fp32 rate outside the tensor cores (every kernel here is
-# fp32 on CUDA cores).
+# rate, the fp32 rate outside the tensor cores (the fp32 kernels run on CUDA
+# cores), and the dense bf16 tensor-core rate (the bf16 GEMM kernels).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 # fp32 tolerance of the JAX package's parity classes (ops/fused/parity.py).
 TOL = 2e-5
@@ -131,9 +154,9 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(stop) / iters
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -512,6 +535,163 @@ def check_training_kernels(dev, cfg):
     return rows
 
 
+# The 1x1-conv dgrads of one bench ResNet-50 step (batch 128, 224 px, NHWC):
+# (M = B*H*W, O, I) and launches a step.  conv1 and conv3 of every unit and
+# stage 1's shortcut are 1x1 stride 1; conv1 of a stage's first unit runs at
+# the stage's input resolution.
+DGRAD_SHAPES = [((401408, 64, 64), 1), ((401408, 256, 64), 4),
+                ((401408, 64, 256), 2), ((401408, 128, 256), 1),
+                ((100352, 512, 128), 4), ((100352, 128, 512), 3),
+                ((100352, 256, 512), 1), ((25088, 1024, 256), 6),
+                ((25088, 256, 1024), 5), ((25088, 512, 1024), 1),
+                ((6272, 2048, 512), 3), ((6272, 512, 2048), 2)]
+# bf16 GEMMs against their plain versions: both sum in fp32 and round once
+# to bf16, in other orders, so they may differ by an ulp of the output
+# (2^-8 relative).
+BF16_TOL = 1e-2
+# fp32 GEMMs: sums of up to 2048 products in other orders.
+GEMM_F32_TOL = 1e-4
+
+
+def rel_err(got, want, tol, name):
+    """Max |got - want| over max |want|, held to ``tol`` (for sums whose
+    terms cancel, where an elementwise relative bound means nothing)."""
+    err = ((got.double() - want.double()).abs().max()
+           / want.double().abs().max().clamp_min(1e-30)).item()
+    print("  %-14s max|err| / max|want| %.3e  (tolerance %.0e)"
+          % (name, err, tol))
+    if not np.isfinite(err) or err > tol:
+        raise SmokeError("%s kernel disagrees with its plain version (%.3e "
+                         "of the largest value)" % (name, err))
+    return err
+
+
+def check_gemm_kernels(dev):
+    """Rows 9-11: the 1x1-conv dgrad at every dgrad shape of the bench
+    ResNet-50 step (bf16), at an fp32 shape and at ragged ones; the
+    probe's two epilogue kernels at its five shapes.  Returns the kernel
+    rows of the JSON line: row 9's times are summed over one step's 33
+    dgrads, rows 10-11's over one call at each probe shape."""
+    import torch
+
+    from mxnet_tpu_torch.ops.fused import conv_kernels as ck
+    from mxnet_tpu_torch.tools import bottleneck_probe as bp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0}
+    err9 = 0.0
+    print("  [conv1x1_dgrad, bf16: (M, O, I) x launches a step: kernel / "
+          "plain / torch.matmul / bound ms]")
+    for (m, o, i), n in DGRAD_SHAPES:
+        dy, w = randn(m, o), randn(o, i, scale=0.07)
+        err9 = max(err9, max_err(ck.conv1x1_dgrad(dy, w, bf),
+                                 ck.conv1x1_dgrad_plain(dy, w, bf),
+                                 BF16_TOL, "dgrad %d" % m))
+        t = cuda_ms(lambda j: ck.conv1x1_dgrad(dy, w, bf), 20)
+        tp = cuda_ms(lambda j: ck.conv1x1_dgrad_plain(dy, w, bf), 3)
+        tl = cuda_ms(lambda j: torch.matmul(dy, w), 20)
+        nbytes, flops = (m * o + o * i + m * i) * 2, 2 * m * o * i
+        nb, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        print("    (%d, %d, %d) x%d: %.4f / %.4f / %.4f / %.4f (%s)"
+              % (m, o, i, n, t, tp, tl, nb, by))
+        for k, v in (("ms", t), ("plain_ms", tp), ("library_ms", tl),
+                     ("bound_ms", nb)):
+            tot[k] += n * v
+        tot["bytes_ms" if by == "bytes" else "ops_ms"] += n * nb
+        del dy, w
+    # fp32 (CUDA cores), a ragged M (no multiple of 128), and K, N that are
+    # no multiple of 16 bytes' worth of elements (the scalar load path)
+    for (m, o, i), dt in (((25088, 256, 1024), torch.float32),
+                          ((1000, 64, 256), bf), ((999, 60, 36), bf),
+                          ((777, 33, 65), torch.float32)):
+        dy, w = randn(m, o, dtype=dt), randn(o, i, scale=0.07, dtype=dt)
+        tol = BF16_TOL if dt == bf else GEMM_F32_TOL
+        max_err(ck.conv1x1_dgrad(dy, w, dt), ck.conv1x1_dgrad_plain(dy, w, dt),
+                tol, "dgrad %d %s" % (m, str(dt)[6:]))
+        if (m, o, i) == (25088, 256, 1024):
+            nb, by = bound((m * o + o * i + m * i) * 4, 2 * m * o * i)
+            print("    fp32 (%d, %d, %d): kernel %.4f ms, plain %.4f ms, "
+                  "torch.matmul %.4f ms, bound %.4f ms (%s)"
+                  % (m, o, i, cuda_ms(lambda j: ck.conv1x1_dgrad(dy, w, dt),
+                                      10),
+                     cuda_ms(lambda j: ck.conv1x1_dgrad_plain(dy, w, dt), 3),
+                     cuda_ms(lambda j: torch.matmul(dy, w), 10), nb, by))
+    rows = [{
+        "name": "conv1x1_dgrad", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/gemm_kernels.cu",
+        "replaces": "mxnet_tpu/ops/nn.py:94", "max_abs_err": err9,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+        else "operations",
+        "library_ms": tot["library_ms"]}]
+
+    # rows 10-11 at the probe's shapes: A (res, ReLU), A without res, B
+    # (dy @ w^T + dres, no ReLU), B without res; and the product + stats
+    epi = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0}
+    st = dict(epi)
+
+    def add_bound(d, nbytes, flops):
+        nb, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        d["bound_ms"] += nb
+        d["bytes_ms" if by == "bytes" else "ops_ms"] += nb
+
+    for name, m, k, n in bp.SHAPES:
+        x, w = randn(m, k), randn(k, n, scale=0.05)
+        scale = torch.rand(n, generator=gen, device=dev) + 0.5
+        bias = torch.randn(n, generator=gen, device=dev)
+        res = randn(m, n)
+        for r_, relu in ((res, True), (None, True)):
+            epi["err"] = max(epi["err"], max_err(
+                bp.mm_epilogue(x, w, scale, bias, r_, relu),
+                bp.mm_epilogue_plain(x, w, scale, bias, r_, relu), BF16_TOL,
+                "A %s%s" % (name, "" if r_ is not None else " no res")))
+        dy, dres, wt = randn(m, n), randn(m, k), w.t().contiguous()
+        ones = torch.ones(k, device=dev)
+        zeros = torch.zeros(k, device=dev)
+        for r_ in (dres, None):
+            epi["err"] = max(epi["err"], max_err(
+                bp.mm_epilogue(dy, wt, ones, zeros, r_, False),
+                bp.mm_epilogue_plain(dy, wt, ones, zeros, r_, False),
+                BF16_TOL, "B %s%s" % (name, "" if r_ is not None
+                                      else " no res")))
+        y, s1, s2 = bp.mm_with_stats(x, w)
+        y0, t1, t2 = bp.mm_with_stats_plain(x, w)
+        st["err"] = max(st["err"], max_err(y, y0, BF16_TOL, "C y " + name),
+                        rel_err(s1, t1, GRAD_TOL, "C sum " + name),
+                        rel_err(s2, t2, GRAD_TOL, "C sum^2 " + name))
+        epi["ms"] += cuda_ms(lambda j: bp.mm_epilogue(
+            x, w, scale, bias, res, True), 20)
+        epi["plain_ms"] += cuda_ms(lambda j: bp.mm_epilogue_plain(
+            x, w, scale, bias, res, True), 3)
+        add_bound(epi, (m * k + k * n + 2 * m * n) * 2 + 8 * n,
+                  2 * m * k * n + 4 * m * n)
+        st["ms"] += cuda_ms(lambda j: bp.mm_with_stats(x, w), 20)
+        st["plain_ms"] += cuda_ms(lambda j: bp.mm_with_stats_plain(x, w), 3)
+        add_bound(st, (m * k + k * n + m * n) * 2 + 8 * n,
+                  2 * m * k * n + 3 * m * n)
+        del x, w, res, dy, dres, wt, y, y0
+    for nm, d, src in (("mm_epilogue", epi, ":112"),
+                       ("mm_with_stats", st, ":153")):
+        rows.append({
+            "name": nm, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/gemm_kernels.cu",
+            "replaces": "tools/bottleneck_probe.py" + src,
+            "max_abs_err": d["err"], "ms": d["ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": "bytes" if d["bytes_ms"] >= d["ops_ms"]
+            else "operations",
+            "library_ms": None})   # no one torch call fuses the epilogue
+    return rows
+
 # ----------------------------------------------------------------- phase 4
 
 
@@ -836,13 +1016,18 @@ def check_training_step(dev):
 
 _OWN_KERNELS = ("flash_prefill_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dq_kernel", "layer_norm_op_kernel",
-                "sgd_mom_multi_kernel")
+                "sgd_mom_multi_kernel", "conv1x1_dgrad_kernel",
+                "mm_epilogue_kernel", "mm_stats_kernel")
 
 
 def _kernel_group(name):
     if any(k in name for k in _OWN_KERNELS):
         return "port kernels"
-    if "gemm" in name or "cutlass" in name or "splitK" in name:
+    if any(k in name for k in ("implicit_gemm", "_fprop", "_dgrad",
+                               "_wgrad", "cudnn")):
+        return "cuDNN"
+    if ("gemm" in name or "cutlass" in name or "splitK" in name
+            or "nvjet" in name):
         return "cuBLAS"
     return "other PyTorch"
 
@@ -852,8 +1037,6 @@ def run_training(dev, cfg, card):
     warm-up step and DRIVE_STEPS timed steps on one seeded batch, through
     get_symbol -> ShardedTrainer -> init -> place_batch -> step_fn."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -898,16 +1081,29 @@ def run_training(dev, cfg, card):
                   tokens / p50 * 1e3, peak / 1e9))
     print("  launches per step: %s" % json.dumps(per_step))
 
+    profile_step(lambda: step(params, moms, aux, batch), p50, card, 14)
+    return counts
+
+
+def profile_step(run, p50, card, top):
+    """Profile one ``run()`` (a training step): the card's busy time against
+    the p50 step (its idle share), device time by kernel group, the ``top``
+    kernels, and the NCHW <-> NHWC conversions (cuDNN's own transposes, or
+    a permute-then-copy), of which a channels-last step should have none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(params, moms, aux, batch)
+        run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
         print("  device time by kernel: not measured (no CUDA events)")
-        return counts
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print("  [%s] one profiled step: %.1f ms of kernels on the card against "
           "the p50 step of %.1f ms: the card idles %.1f%% of the step"
           % (card, busy, p50, 100.0 * max(0.0, 1 - busy / p50)))
@@ -918,11 +1114,311 @@ def run_training(dev, cfg, card):
     print("  by group: %s" % ", ".join("%s %.1f ms" % kv for kv in
                                        sorted(groups.items(),
                                               key=lambda kv: -kv[1])))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print("    %-62s %8.2f ms %5d launches"
               % (e.key[:62], e.self_device_time_total / 1e3, e.count))
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    print("  by op (the host op that launched the work): %s"
+          % ", ".join("%s %.1f ms (%d)" % (e.key, e.self_device_time_total
+                                           / 1e3, e.count)
+                      for e in ops[:8]))
+    relayout = [e for e in kernels
+                if re.search(r"nchwToNhwc|nhwcToNchw|[Tt]ranspose", e.key)]
+    print("  layout-conversion kernels in the profiled step: %d launches, "
+          "%.2f ms" % (sum(e.count for e in relayout),
+                       sum(e.self_device_time_total for e in relayout) / 1e3))
+
+
+# ------------------------------------------------------------ phases 7-9
+
+# The bench ResNet-50 (bench.py's TPU branch) and the drive's batch.
+RESNET = dict(num_classes=1000, num_layers=50, dtype="bfloat16",
+              layout="NHWC", stem="s2d")
+RESNET_IMAGE = 224
+RESNET_BATCH = 128
+# The card-versus-CPU ResNet step: full widths, 64 px, batch 2, fp32.
+RESNET_CHECK_IMAGE = 64
+RESNET_CHECK_BATCH = 2
+# Launches of the 1x1 dgrad kernel in one bench step under pallas: conv1
+# and conv3 of each of the 16 units, and stage 1's stride-1 shortcut.
+DGRAD_PER_STEP = 33
+
+
+def _resnet_trainer(image, batch, device, dtype):
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    sym = resnet.get_symbol(image_shape=(3, image, image),
+                            **dict(RESNET, dtype=dtype))
+    return ShardedTrainer(
+        sym, None, data_shapes={"data": (batch, 3, image, image)},
+        label_shapes={"softmax_label": (batch,)}, momentum=0.9,
+        learning_rate=0.1, wd=1e-4, rescale_grad=1.0 / batch, device=device)
+
+
+def _resnet_batch(image, batch, seed):
+    rng = np.random.RandomState(seed)
+    return {"data": rng.uniform(-1, 1, (batch, 3, image, image))
+            .astype(np.float32),
+            "softmax_label": rng.randint(0, 1000, (batch,))
+            .astype(np.float32)}
+
+
+def _largest_rel(got, want, scale=None):
+    """max |got - want| over max |scale| (default: ``want``)."""
+    g, w = got.detach().cpu().double(), want.detach().cpu().double()
+    s = w if scale is None else scale.detach().cpu().double()
+    return ((g - w).abs().max() / s.abs().max().clamp_min(1e-30)).item()
+
+
+# bn0's scale reaches the loss only through per-channel ReLU and max-pooling
+# into stage 1's first BatchNorm, which normalises it away: its exact
+# gradient is zero up to that BatchNorm's eps (300x smaller than bn0_beta's
+# in the float64 step), so its momentum is mostly weight decay and its
+# gradient part is rounding on any device.  Its momentum is measured against
+# the largest momentum of its layer, bn0_beta's.
+MOMENTUM_SCALE = {"bn0_gamma": "bn0_beta"}
+
+
+def _relu_gates(sym, params, aux, batch):
+    """``{relu node: its output > 0}`` of one training-mode forward."""
+    import torch
+    from mxnet_tpu_torch.executor import graph_fn
+
+    internals = sym.get_internals()
+    with torch.no_grad():
+        outs, _ = graph_fn(internals)(dict(params, **batch), aux, None, True)
+    got = dict(zip(internals.list_outputs(), outs))
+    return {n.name: got[n.output_name(0)] > 0 for n in sym._topo()
+            if not n.is_variable and n.op.name == "Activation"
+            and n.attrs["act_type"] == "relu"}
+
+
+def _upstream(sym, names):
+    """The variables that any node of ``names`` is computed from."""
+    deps = {}
+    for node in sym._topo():
+        deps[node.name] = {node.name} if node.is_variable else set()
+        for src, _ in node.inputs:
+            deps[node.name] |= deps[src.name]
+    return set().union(*(deps[n] for n in names))
+
+
+def check_resnet_step(dev):
+    """One ResNet-50 step (full widths, 64 px, batch 2, fp32, TF32 off)
+    from the same init(seed) and batch: on the card under MXTPU_CONV1X1 =
+    pallas, dot and unset, and on the CPU (plain versions) in fp32 and in
+    float64.
+
+    A ReLU whose input lies within the forward's rounding of zero can fall
+    on the other side of its gate on another device; the gradient element
+    behind it then differs by its whole size, BatchNorm's backward spreads
+    that over the channel, and every tensor the gate's input is computed
+    from moves.  So:
+
+    * outputs and moving statistics: card (pallas) against CPU fp32, within
+      STEP_TOL of each tensor's largest value;
+    * weights and momenta, every tensor: the card's three modes run one
+      forward (cuDNN deterministic, checked bit for bit), so their gates
+      agree, and pallas is held against dot and against unset (cuDNN's own
+      backward) within STEP_TOL;
+    * weights and momenta against the CPU: card against CPU fp32, and CPU
+      fp32 against float64, within STEP_TOL on every tensor that no gate
+      differing between the pair is computed from.  The gates that differ
+      and the distances behind them are printed."""
+    import torch
+
+    host = _resnet_batch(RESNET_CHECK_IMAGE, RESNET_CHECK_BATCH, SEED + 6)
+    res, gates = {}, {}
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for device, dt, mode in ((dev, "float32", "pallas"),
+                                 (dev, "float32", "dot"),
+                                 (dev, "float32", ""),
+                                 ("cpu", "float32", "pallas"),
+                                 ("cpu", "float64", "pallas")):
+            os.environ["MXTPU_CONV1X1"] = mode
+            key = (str(device), dt, mode)
+            t0 = time.perf_counter()
+            tr = _resnet_trainer(RESNET_CHECK_IMAGE, RESNET_CHECK_BATCH,
+                                 device, "float32")
+            params, moms, aux = tr.init(seed=SEED)
+            batch = tr.place_batch(host)
+            if dt == "float64":
+                params, moms, aux, batch = (
+                    {n: t.double() for n, t in d.items()}
+                    for d in (params, moms, aux, batch))
+            if mode == "pallas":
+                gates[key[:2]] = _relu_gates(tr.symbol, params, aux, batch)
+            outs, params, moms, aux = tr.step_fn()(params, moms, aux, batch)
+            if str(device) != "cpu":
+                torch.cuda.synchronize()
+            print("  ResNet-50 step on %s, %s, MXTPU_CONV1X1=%r: %.1f s "
+                  "(init included)" % (device, dt, mode,
+                                       time.perf_counter() - t0))
+            res[key] = ({"softmax_output": outs[0]}, aux, params, moms)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        os.environ["MXTPU_CONV1X1"] = "pallas"
+    sym = tr.symbol
+    card, cpu, exact = (res[(str(dev), "float32", "pallas")],
+                        res[("cpu", "float32", "pallas")],
+                        res[("cpu", "float64", "pallas")])
+
+    def rel_of(got, want, n, momentum):
+        scale = MOMENTUM_SCALE.get(n) if momentum else None
+        return _largest_rel(got[n], want[n], scale and want[scale])
+
+    def hold(what, got, want, names=None):
+        worst = (0.0, None)
+        for n in (want if names is None else names):
+            rel = rel_of(got, want, n, what.endswith("momenta"))
+            if not np.isfinite(rel) or rel > STEP_TOL:
+                raise SmokeError("ResNet step: %s %s: %.3e of its largest "
+                                 "value" % (what, n, rel))
+            worst = max(worst, (rel, n), key=lambda r: r[0])
+        return worst
+
+    report = []
+    for i, kind in enumerate(("outputs", "moving stats")):
+        report.append(("card vs CPU fp32, " + kind,
+                       hold("card vs CPU, " + kind, card[i], cpu[i]), ""))
+    for mode in ("dot", ""):
+        other = res[(str(dev), "float32", mode)]
+        for i in (0, 1):
+            for n in card[i]:
+                if not torch.equal(card[i][n], other[i][n]):
+                    raise SmokeError(
+                        "ResNet step: the card's forward under "
+                        "MXTPU_CONV1X1=pallas and %r differs (%s): the "
+                        "modes' gates may differ" % (mode, n))
+        for i, kind in ((2, "weights"), (3, "momenta")):
+            what = "card pallas vs %r, %s" % (mode, kind)
+            report.append((what, hold(what, card[i], other[i]), ""))
+    card_gates = gates[(str(dev), "float32")]
+    for pair, a, b, ga, gb in (
+            ("card vs CPU fp32", card, cpu, card_gates,
+             gates[("cpu", "float32")]),
+            ("CPU fp32 vs float64", cpu, exact, gates[("cpu", "float32")],
+             gates[("cpu", "float64")])):
+        flipped = {n: int((ga[n].cpu() != gb[n].cpu()).sum()) for n in gb}
+        flipped = {n: c for n, c in flipped.items() if c}
+        behind = _upstream(sym, flipped)
+        for i, kind in ((2, "weights"), (3, "momenta")):
+            names = [n for n in b[i] if n not in behind]
+            far = max([(rel_of(a[i], b[i], n, i == 3), n)
+                       for n in b[i] if n in behind] or [(0.0, "-")],
+                      key=lambda r: r[0])
+            what = "%s, %s" % (pair, kind)
+            report.append((what, hold(what, a[i], b[i], names),
+                           "%d held; %d behind a differing gate, farthest "
+                           "%.3e (%s)" % (len(names), len(b[i]) - len(names),
+                                          far[0], far[1])))
+        print("  %s: %d ReLU gates of %d differ (%s)"
+              % (pair, sum(flipped.values()),
+                 sum(g.numel() for g in gb.values()),
+                 ", ".join("%s %d" % kv for kv in flipped.items()) or "-"))
+    print("  one ResNet-50 step at %d px, batch %d: max |err| / max |ref| "
+          "of each tensor, tolerance %.0e:"
+          % (RESNET_CHECK_IMAGE, RESNET_CHECK_BATCH, STEP_TOL))
+    for what, (rel, n), note in report:
+        print("    %-36s %.3e %-28s %s" % (what, rel, n or "-", note))
+
+
+def run_resnet_training(dev, card, mode):
+    """The bench ResNet-50 through get_symbol -> ShardedTrainer -> init ->
+    place_batch -> step_fn under MXTPU_CONV1X1=mode: a warm-up and
+    DRIVE_STEPS timed steps on one seeded batch.  Returns the launch
+    counts of the run."""
+    import torch
+
+    from mxnet_tpu_torch.ops import launch_counts, nn, reset_launch_counts
+
+    if mode:
+        os.environ["MXTPU_CONV1X1"] = mode
+    else:
+        os.environ.pop("MXTPU_CONV1X1", None)
+    label = mode or "unset"
+    host = _resnet_batch(RESNET_IMAGE, RESNET_BATCH, SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    nn.reset_relayout_copies()
+    reset_launch_counts()
+    # -- the main path: entry points a user calls ------------------------
+    t0 = time.perf_counter()
+    tr = _resnet_trainer(RESNET_IMAGE, RESNET_BATCH, dev, RESNET["dtype"])
+    params, moms, aux = tr.init(seed=SEED)
+    batch = tr.place_batch(host)
+    step = tr.step_fn()
+    print("  MXTPU_CONV1X1=%s: %d parameters, init %.1f s"
+          % (label, sum(p.numel() for p in params.values()),
+             time.perf_counter() - t0))
+    lab = batch["softmax_label"].reshape(-1).long()
+    losses, step_ms = [], []
+    for i in range(1 + DRIVE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, params, moms, aux = step(params, moms, aux, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ce = -outs[0].gather(1, lab[:, None]).double().log().mean().item()
+        print("  step %d%s: %.1f ms, cross-entropy %.6f"
+              % (i, " (warm-up)" if i == 0 else "", ms, ce))
+        losses.append(ce)
+        if i:
+            step_ms.append(ms)
+    counts = launch_counts()
+    # -- end of the main path -------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    steps = 1 + DRIVE_STEPS
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SmokeError("ResNet losses %s (%s): not finite, or the last not "
+                         "below the warm-up's" % (losses, label))
+    want = DGRAD_PER_STEP * steps if mode == "pallas" else 0
+    if counts["conv1x1_dgrad"] != want or counts["sgd_mom_multi"] != steps:
+        raise SmokeError("ResNet drive (%s): conv1x1_dgrad launched %d times, "
+                         "sgd_mom_multi %d, in %d steps"
+                         % (label, counts["conv1x1_dgrad"],
+                            counts["sgd_mom_multi"], steps))
+    if any(nn.relayout_copies.values()):
+        raise SmokeError("ResNet drive (%s): NHWC tensors copied into row-"
+                         "major order: %s" % (label, nn.relayout_copies))
+    p50 = float(np.percentile(step_ms, 50))
+    print("  [%s] MXTPU_CONV1X1=%s: step ms p50 %.1f (%s), images/s %.0f, "
+          "peak memory %.2f GB" % (card, label, p50, ", ".join(
+              "%.1f" % m for m in step_ms), RESNET_BATCH / p50 * 1e3,
+              peak / 1e9))
+    print("  launches per step: %s; relayout copies in the run: %s"
+          % (json.dumps({n: c / steps for n, c in counts.items() if c}),
+             json.dumps(nn.relayout_copies)))
+
+    profile_step(lambda: step(params, moms, aux, batch), p50, card, 16)
     return counts
 
+
+def run_probe(card):
+    """The port's bottleneck probe; returns the launch counts of its run."""
+    import torch
+
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.tools import bottleneck_probe
+
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    # -- the main path: the probe's entry point --------------------------
+    rows = bottleneck_probe.main()
+    counts = launch_counts()
+    # -- end of the main path -------------------------------------------
+    for name, r in rows.items():
+        print("  [%s] %s: A %.2fx, B %.2fx, C %.2fx (torch ms over kernel "
+              "ms)" % (card, name, r["A_torch"] / r["A_kernel"],
+                       r["B_torch"] / r["B_kernel"],
+                       r["C_torch"] / r["C_kernel"]))
+    return counts
 
 # -------------------------------------------------------------------- main
 
@@ -954,27 +1450,35 @@ def main():
         for line in _build.build_log(name).splitlines():
             mangled = re.search(r"Compiling entry function '(\w+)'", line)
             entry = mangled and re.search(
-                r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E|E)", mangled.group(1))
+                r"\d([a-z][a-z0-9_]*_kernel)(?:ILi(\d+)E|I(13__nv_bfloat16|f)"
+                r"Lb(\d)E|E)", mangled.group(1))
             if entry:
+                targs = entry.group(2) or (entry.group(3) and "%s, %s" % (
+                    "bf16" if entry.group(3) != "f" else "fp32",
+                    "vector" if entry.group(4) == "1" else "scalar"))
                 print("  %s: %s%s" % (name, entry.group(1),
-                                      "<%s>" % entry.group(2)
-                                      if entry.group(2) else ""))
+                                      "<%s>" % targs if targs else ""))
             elif "registers" in line or "spill" in line:
                 print("  %s:   %s" % (name, line.strip()))
 
     print("== phase 3: kernels against their plain versions")
     lane_rows = check_kernels(dev, CFG)
     train_rows = check_training_kernels(dev, CFG)
-    for shape, rs in (("lane", lane_rows), ("training", train_rows)):
+    gemm_rows = check_gemm_kernels(dev)
+    for shape, rs in (("the lane's shape", lane_rows),
+                      ("the LM training step's shape", train_rows),
+                      ("one ResNet step's shapes (row 9) or the probe's",
+                       gemm_rows)):
         for r in rs:
-            print("  [%s] %-14s at the %s's shape: kernel %.4f ms  plain "
+            print("  [%s] %-14s at %s: kernel %.4f ms  plain "
                   "%.4f ms  library %s  bound %.4f ms (%s)"
                   % (card, r["name"], shape, r["ms"], r["plain_ms"],
                      "%.4f ms" % r["library_ms"]
                      if r["library_ms"] is not None else "none",
                      r["bound_ms"], r["bound_by"]))
     # flash_prefill runs on both paths: its line is the training shape's
-    rows = [r for r in lane_rows if r["name"] != "flash_prefill"] + train_rows
+    rows = [r for r in lane_rows if r["name"] != "flash_prefill"] \
+        + train_rows + gemm_rows
     torch.cuda.synchronize()
 
     print("== phase 4: generation lane, %d layers, d%d, vocab %d"
@@ -990,8 +1494,22 @@ def main():
              CFG["seq_len"]))
     train_counts = run_training(dev, CFG, card)
 
+    print("== phase 7: one ResNet-50 step, card against CPU")
+    os.environ["MXTPU_CONV1X1"] = "pallas"
+    check_resnet_step(dev)
+
+    print("== phase 8: training ResNet-50, %d px, batch %d, %s, %s, stem %s"
+          % (RESNET_IMAGE, RESNET_BATCH, RESNET["dtype"], RESNET["layout"],
+             RESNET["stem"]))
+    path_counts = [counts, train_counts]
+    for mode in ("pallas", ""):
+        path_counts.append(run_resnet_training(dev, card, mode))
+
+    print("== phase 9: the bottleneck probe")
+    path_counts.append(run_probe(card))
+
     for r in rows:
-        r["launches"] = counts[r["name"]] + train_counts[r["name"]]
+        r["launches"] = sum(c[r["name"]] for c in path_counts)
     missing = [r["name"] for r in rows if not r["launches"]]
     if missing:
         raise SmokeError("kernels never launched on a main path: %s"

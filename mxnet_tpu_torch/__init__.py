@@ -2,11 +2,14 @@
 
 A second package beside the JAX one, with the same module names.  It
 serves the transformer LM through the autoregressive generation lane
-(:mod:`.serving.generation`) and trains it through Symbol → graph function
-→ :class:`~.parallel.ShardedTrainer` on an NVIDIA Hopper card, with
-kernels written by hand in CUDA C++ (``csrc/``): flash attention forward
-and backward, block-table paged decode attention, the LM layer norm, the
-FFN's GELU+bias epilogue, the ``LayerNorm`` op and the SGD-momentum step.
+(:mod:`.serving.generation`) and trains it, and ResNet, through Symbol →
+graph function → :class:`~.parallel.ShardedTrainer` on an NVIDIA Hopper
+card, with kernels written by hand in CUDA C++ (``csrc/``): flash attention
+forward and backward, block-table paged decode attention, the LM layer
+norm, the FFN's GELU+bias epilogue, the ``LayerNorm`` op, the SGD-momentum
+step, and a tiled GEMM with three epilogues (the 1x1-conv dgrad that
+``MXTPU_CONV1X1=pallas`` selects, and the two kernels of
+:mod:`.tools.bottleneck_probe`).
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version
 instead.

@@ -25,8 +25,9 @@ _DEFERRED_ATTRS = ("__remat__", "ctx_group")
 def graph_fn(symbol: Symbol):
     """``run(arg_values, aux_values, rng, is_train) -> (outputs, new_aux)``.
 
-    ``rng`` and ``is_train`` are accepted for the JAX package's signature;
-    no op of this slice draws random numbers or changes with the mode."""
+    ``is_train`` reaches the ops that declare ``needs_mode`` (``BatchNorm``);
+    ``rng`` is accepted for the JAX package's signature: no op of the port
+    draws random numbers yet."""
     nodes = symbol._topo()
     for node in nodes:
         held = [a for a in _DEFERRED_ATTRS if a in node.extra_attrs]
@@ -48,7 +49,7 @@ def graph_fn(symbol: Symbol):
             ins = [env[s._id][i] for s, i in node.inputs]
             n_args = len(node.op.input_names(node.attrs))
             outs, aux_updates = node.op.apply(node.attrs, ins[:n_args],
-                                              ins[n_args:])
+                                              ins[n_args:], is_train)
             env[node._id] = outs
             for (aux_node, _), val in zip(node.inputs[n_args:], aux_updates):
                 new_aux[aux_node.name] = val

@@ -1,5 +1,6 @@
-"""Models of the port: the transformer LM's functional serving path."""
+"""Models of the port: the transformer LM (training symbol and functional
+serving path) and ResNet (training symbol)."""
 
-from . import transformer
+from . import resnet, transformer
 
-__all__ = ["transformer"]
+__all__ = ["resnet", "transformer"]

@@ -5,6 +5,7 @@ CUDA tensor, launches its kernel or raises: there is no fallback from a
 failed build or launch to the plain version.
 """
 
-from . import attention_kernels, norm_kernels, optimizer_kernels
+from . import attention_kernels, conv_kernels, norm_kernels, optimizer_kernels
 
-__all__ = ["attention_kernels", "norm_kernels", "optimizer_kernels"]
+__all__ = ["attention_kernels", "conv_kernels", "norm_kernels",
+           "optimizer_kernels"]

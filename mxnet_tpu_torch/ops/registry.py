@@ -10,7 +10,9 @@ One registry; each op's compute rule is a function on torch tensors, and
   after the outputs.
 * ``params`` -- the attribute spec (name -> :class:`ParamSpec`): typed,
   defaulted and parseable from strings.
-* ``fn(attrs, *tensors)`` -- the compute rule.
+* ``fn(attrs, *tensors)`` -- the compute rule; with ``needs_mode`` it also
+  takes ``is_train=`` (``BatchNorm`` uses batch statistics and updates its
+  moving ones only when training).
 
 The JAX registry also carries a variant seam that runs a fused variant and,
 when the variant raises, books a fallback and runs the stock rule instead
@@ -105,7 +107,8 @@ class Op:
                  arg_names: Sequence[str] = ("data",),
                  aux_names: Sequence[str] = (), num_outputs=1,
                  params: Optional[Dict[str, ParamSpec]] = None,
-                 input_names_fn: Optional[Callable] = None):
+                 input_names_fn: Optional[Callable] = None,
+                 needs_mode: bool = False):
         self.name = name
         self.fn = fn
         self.arg_names = list(arg_names)
@@ -113,6 +116,7 @@ class Op:
         self.num_outputs = num_outputs
         self.params = params or {}
         self.input_names_fn = input_names_fn
+        self.needs_mode = needs_mode
 
     def parse_attrs(self, kwargs: Dict) -> Dict:
         """Validate and parse keyword attributes into an attrs dict."""
@@ -138,9 +142,11 @@ class Op:
             return list(self.input_names_fn(attrs))
         return self.arg_names
 
-    def apply(self, attrs, args, auxs=()):
-        """Run the compute rule; returns ``(outputs, new_aux)`` lists."""
-        out = self.fn(attrs, *args, *auxs)
+    def apply(self, attrs, args, auxs=(), is_train=False):
+        """Run the compute rule; returns ``(outputs, new_aux)`` lists.
+        ``is_train`` reaches only the ops that declare ``needs_mode``."""
+        kw = {"is_train": is_train} if self.needs_mode else {}
+        out = self.fn(attrs, *args, *auxs, **kw)
         if not isinstance(out, tuple):
             out = (out,)
         n_out = self.n_outputs(attrs)

@@ -1,9 +1,10 @@
-"""Tensor ops of the transformer training graph (the JAX package's
-``ops/tensor.py``, as far as this slice's symbols need it).
+"""Tensor ops of the port's training graphs (the JAX package's
+``ops/tensor.py``, as far as the transformer's and ResNet's symbols need it).
 
-``Embedding``, ``Reshape`` (with MXNet's special codes), ``broadcast_add``,
-``elemwise_add`` (the ``+`` of two symbols), ``Cast`` (fp32 only) and the
-optimizer update ops ``sgd_update`` and ``sgd_mom_update``.  Each compute
+``Embedding``, ``Reshape`` (with MXNet's special codes), ``Flatten``,
+``transpose``, ``broadcast_add``, ``elemwise_add`` (the ``+`` of two
+symbols), ``Cast`` and the optimizer update ops ``sgd_update`` and
+``sgd_mom_update``.  Each compute
 rule takes ``(attrs, *tensors)``; plain PyTorch, differentiable by autograd,
 except ``sgd_mom_update``, which is the CUDA kernel's wrapper.
 """
@@ -84,12 +85,29 @@ def _reshape(attrs, x):
     return x.reshape(infer_reshape(tuple(x.shape), tgt))
 
 
+@register("Flatten", aliases=["flatten"])
+def _flatten(attrs, x):
+    return x.reshape(x.shape[0], -1)
+
+
+@register("transpose", params={"axes": P("shape", None)})
+def _transpose(attrs, x):
+    axes = attrs["axes"]
+    return x.permute(*axes) if axes else x.permute(*range(x.dim() - 1, -1, -1))
+
+
+# The dtypes Cast takes (names of the JAX package's base.STR_TO_DTYPE that
+# the port's graphs use).
+_CAST_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 @register("Cast", aliases=["cast"], params={"dtype": P("str", "float32")})
 def _cast(attrs, x):
-    if attrs["dtype"] != "float32":
-        raise MXNetError("Cast to %s: the port's training path is fp32 "
-                         "(a bf16 lane is a later slice)" % attrs["dtype"])
-    return x.float()
+    dtype = _CAST_DTYPES.get(attrs["dtype"])
+    if dtype is None:
+        raise MXNetError("Cast to %s is not ported (the port casts to %s)"
+                         % (attrs["dtype"], sorted(_CAST_DTYPES)))
+    return x.to(dtype)
 
 
 @register("Embedding", arg_names=["data", "weight"],

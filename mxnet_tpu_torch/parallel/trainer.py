@@ -10,7 +10,9 @@ over every parameter (``fused_sgd_mom_tree``, the JAX trainer's ``use_tree``
 route); with momentum 0 it is one ``sgd_update`` per parameter.
 ``skip_nonfinite`` folds the finite check of the loss and every gradient
 into a device flag that the kernel reads, so a bad batch leaves the state
-as it was and the host never waits for the verdict.
+as it was and the host never waits for the verdict.  Auxiliary states
+(BatchNorm's moving statistics) go through the graph in training mode and
+come back updated.
 
 Parameters and momenta are updated in place (the JAX step donates its
 inputs) and returned.  Mesh sharding, ZeRO, gradient accumulation, mixed
@@ -199,8 +201,13 @@ class ShardedTrainer:
             args.update(leaves)
             outs, new_aux = run(args, aux, rng, True)
             loss = sum(o.float().sum() for o in outs)
-            grads = {n: g.contiguous() for n, g in zip(diff, torch.autograd.grad(
-                loss, [leaves[n] for n in diff]))}
+            # a parameter no output depends on (BatchNorm's gamma under
+            # fix_gamma) gets a zero gradient, as under jax.grad; the update
+            # still decays it by wd
+            raw = torch.autograd.grad(loss, [leaves[n] for n in diff],
+                                      allow_unused=True)
+            grads = {n: torch.zeros_like(leaves[n]) if g is None
+                     else g.contiguous() for n, g in zip(diff, raw)}
             outs = [o.detach() for o in outs]
             new_aux = {n: t.detach() for n, t in new_aux.items()}
             ok = None

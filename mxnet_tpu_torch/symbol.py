@@ -10,8 +10,9 @@ same names in the same order.
 Shape inference (:func:`infer`) runs each op's compute rule on ``meta``
 tensors (shape and dtype, no data), where the JAX package uses
 ``jax.eval_shape``, and back-solves parameter shapes from the data shape
-for ``FullyConnected``, ``LayerNorm``, ``Embedding`` and
-``MultiHeadAttention`` (``_try_param_solve``).  JSON save and load are a
+for ``FullyConnected``, ``Convolution``, ``BatchNorm``, ``LayerNorm``,
+``Embedding`` and ``MultiHeadAttention`` (``_try_param_solve``).  Every
+op runs in inference mode there, as in the JAX package.  JSON save and load are a
 later slice.
 """
 
@@ -320,6 +321,18 @@ def _try_param_solve(node, metas, resolved):
                   else dshape[-1])
         solved = {"weight": (a["num_hidden"], in_dim),
                   "bias": (a["num_hidden"],)}
+    elif op == "Convolution":
+        k, ng = tuple(a["kernel"]), a.get("num_group", 1)
+        if a.get("layout") == "NHWC" and len(k) == 2:
+            wshape = (a["num_filter"],) + k + (dshape[-1] // ng,)   # OHWI
+        else:
+            wshape = (a["num_filter"], dshape[1] // ng) + k
+        solved = {"weight": wshape, "bias": (a["num_filter"],)}
+    elif op == "BatchNorm":
+        c = dshape[a.get("axis", 1) % len(dshape)] if len(dshape) > 1 \
+            else dshape[0]
+        solved = {p: (c,) for p in ("gamma", "beta", "moving_mean",
+                                    "moving_var")}
     elif op == "Embedding":
         solved = {"weight": (a["input_dim"], a["output_dim"])}
     elif op == "LayerNorm":
