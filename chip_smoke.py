@@ -18,6 +18,11 @@ Phases, each fatal on failure:
    GEMMs at its five shapes) and at a ragged shape, with its time, the plain
    version's time, the time of one library call computing the same function
    where there is one, and the least time the card could take (its bound).
+   The flash forward (3xTF32 on tensor cores) is also timed in turns with
+   the earlier CUDA-core forward, and given both bounds (fp32 CUDA cores,
+   3xTF32 tensor cores; its JSON bound is the latter); the bf16 dgrad (TMA +
+   wgmma) in turns with the earlier wmma core, shape by shape, and each
+   dgrad shape is checked to reach the kernel its shape takes.
 4. The generation lane at the full width of the LM the repo benches
    (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
    vocab 32000, seq_len 2048), fp32, random weights from a seed: an
@@ -52,8 +57,8 @@ Phases, each fatal on failure:
    then unset: one warm-up and 5 timed steps each on one seeded batch,
    losses finite and the last below the warm-up's, no NHWC tensor copied
    into row-major order; step time, images/s, peak memory, launches per
-   step (the 1x1 dgrad kernel 33 a step under ``pallas``, none unset), the
-   idle share and time by kernel and by op.
+   step (the 1x1 dgrad kernel 33 a step under ``pallas``, none unset, and
+   never the wmma core), the idle share and time by kernel and by op.
 9. The port's bottleneck probe (``mxnet_tpu_torch.tools.bottleneck_probe
    .main``): cuBLAS plus elementwise against the epilogue kernels at its
    five ResNet-50 shapes.
@@ -79,10 +84,13 @@ import time
 import numpy as np
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
-# rate, the fp32 rate outside the tensor cores (the fp32 kernels run on CUDA
-# cores), and the dense bf16 tensor-core rate (the bf16 GEMM kernels).
+# rate, the fp32 rate outside the tensor cores (most fp32 kernels run on CUDA
+# cores), the dense TF32 tensor-core rate (the flash forward's 3xTF32: three
+# TF32 products for each fp32 one) and the dense bf16 tensor-core rate (the
+# bf16 GEMM kernels).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 
 # fp32 tolerance of the JAX package's parity classes (ops/fused/parity.py).
@@ -158,6 +166,39 @@ def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_fwd_bounds(nbytes, flops):
+    """The flash forward's two bounds: fp32 on CUDA cores, and the fp32-
+    accurate least time on the tensor cores, 3xTF32 (three TF32 products
+    for each fp32 one, at the TF32 rate): ``((ms, by), (ms, by))``."""
+    return bound(nbytes, flops), bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+
+
+def in_turns(old, new, iters):
+    """Device ms of two versions of one function, timed old, new, new, old
+    in one call on one card: ``(old ms, new ms)``, each the mean of its two
+    readings."""
+    a, b = cuda_ms(old, iters), cuda_ms(new, iters)
+    c, d = cuda_ms(new, iters), cuda_ms(old, iters)
+    return (a + d) / 2, (b + c) / 2
+
+
+def simt_flash(q, k, v, causal, with_lse):
+    """One launch of the earlier CUDA-core flash forward (kept in the
+    library for this comparison only) on q, k, v [B, H, T, D=64]."""
+    import torch
+
+    from mxnet_tpu_torch.ops.fused import attention_kernels as ak
+
+    bsz, heads, t_len, dim = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], device=q.device) if with_lse else None
+    ak.FLASH_FWD_SIMT.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), bsz, heads, t_len,
+        k.shape[2], dim, int(causal), 1.0 / dim ** 0.5)
+    return out
 
 
 def max_err(got, want, tol, name):
@@ -236,18 +277,26 @@ def check_kernels(dev, cfg):
             att.stable_causal_attention_plain(qr, kr, vr), FLASH_TOL,
             "flash T=333")
     pairs = t * (t + 1) // 2
-    nb, by = bound(4 * q.numel() * 4, 4 * d * heads * pairs)
+    (nb32, _), (nb, by) = flash_fwd_bounds(4 * q.numel() * 4,
+                                           4 * d * heads * pairs)
+    old_ms, new_ms = in_turns(
+        lambda i: simt_flash(q, k, v, True, False),
+        lambda i: ak.fused_prefill_attention(q, k, v), 100)
     rows.append({
         "name": "flash_prefill", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/attention_kernels.cu",
         "replaces": "mxnet_tpu/ops/attention.py:281",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda i: ak.fused_prefill_attention(q, k, v), 100),
+        "max_abs_err": err, "ms": new_ms,
         "plain_ms": cuda_ms(
             lambda i: att.stable_causal_attention_plain(q, k, v), 3),
         "bound_ms": nb, "bound_by": by,
         "library_ms": cuda_ms(lambda i: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), 100)})
+    print("  [flash_prefill, lane shape [1, %d, %d, %d] causal] 3xTF32 kernel "
+          "%.4f ms, the earlier CUDA-core kernel %.4f ms (in turns), SDPA "
+          "%.4f ms; bounds: fp32 CUDA cores %.4f ms, 3xTF32 tensor cores "
+          "%.4f ms" % (heads, t, d, new_ms, old_ms, rows[-1]["library_ms"],
+                       nb32, nb))
 
     # paged decode: 8 sequences through one layer's pool; timed over all
     # layers' pools in turn, as a decode step reads them
@@ -357,41 +406,50 @@ def check_training_kernels(dev, cfg):
     o_p, lse_p = att.flash_fwd_plain(q, k, v, True)
     err_o = max_err(o, o_p, FLASH_TOL, "flash fwd o")
     err_l = max_err(lse, lse_p, FLASH_TOL, "flash fwd lse")
+    # the backward kernels and their plain version read the kernel's o and lse
     dq, dk, dv = ak.fused_flash_bwd(q, k, v, o, lse, do, True)
-    want = att.flash_bwd_plain(q, k, v, o_p, lse_p, do, True)
+    want = att.flash_bwd_plain(q, k, v, o, lse, do, True)
     err_dq = max_err(dq, want[0], FLASH_TOL, "flash dq")
     err_dk = max_err(dk, want[1], FLASH_TOL, "flash dk")
     err_dv = max_err(dv, want[2], FLASH_TOL, "flash dv")
     del want, o_p, lse_p
     # ragged, not causal, a scale other than 1/sqrt(D), and Tk != T
-    for tq, tk in ((333, 333), (333, 300)):
-        qr, dor = randn(1, heads, tq, d), randn(1, heads, tq, d)
-        kr, vr = randn(1, heads, tk, d), randn(1, heads, tk, d)
+    # (batch 8 gives the forward blocks of two warpgroups, batch 1 of one)
+    for bq, tq, tk in ((1, 333, 333), (1, 333, 300), (TRAIN_BATCH, 333, 300)):
+        qr, dor = randn(bq, heads, tq, d), randn(bq, heads, tq, d)
+        kr, vr = randn(bq, heads, tk, d), randn(bq, heads, tk, d)
         orr, lr = ak.fused_flash_fwd(qr, kr, vr, False, 0.3)
         orp, lrp = att.flash_fwd_plain(qr, kr, vr, False, 0.3)
-        tag = "T=%d Tk=%d" % (tq, tk)
+        tag = "B=%d T=%d Tk=%d" % (bq, tq, tk)
         max_err(orr, orp, FLASH_TOL, "fwd o " + tag)
         max_err(lr, lrp, FLASH_TOL, "fwd lse " + tag)
         got = ak.fused_flash_bwd(qr, kr, vr, orr, lr, dor, False, 0.3)
-        want = att.flash_bwd_plain(qr, kr, vr, orp, lrp, dor, False, 0.3)
+        want = att.flash_bwd_plain(qr, kr, vr, orr, lr, dor, False, 0.3)
         for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
             max_err(g_, w_, FLASH_TOL, "%s %s" % (name, tag))
 
     pairs = b * heads * t * (t + 1) // 2
     nbytes = q.numel() * 4
-    nb, by = bound(4 * nbytes + lse.numel() * 4, 4 * d * pairs)
+    (nb32, _), (nb, by) = flash_fwd_bounds(4 * nbytes + lse.numel() * 4,
+                                           4 * d * pairs)
     q_, k_, v_ = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+    old_ms, new_ms = in_turns(lambda i: simt_flash(q, k, v, True, True),
+                              lambda i: ak.fused_flash_fwd(q, k, v, True), 10)
     rows.append({
         "name": "flash_prefill", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/attention_kernels.cu",
         "replaces": "mxnet_tpu/ops/attention.py:281",
-        "max_abs_err": max(err_o, err_l),
-        "ms": cuda_ms(lambda i: ak.fused_flash_fwd(q, k, v, True), 10),
+        "max_abs_err": max(err_o, err_l), "ms": new_ms,
         "plain_ms": cuda_ms(lambda i: att.flash_fwd_plain(q, k, v, True), 2),
         "bound_ms": nb, "bound_by": by,
         "library_ms": cuda_ms(lambda i: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), 10)})
+    print("  [flash forward with lse, training shape [%d, %d, %d, %d] causal] "
+          "3xTF32 kernel %.4f ms, the earlier CUDA-core kernel %.4f ms (in "
+          "turns), SDPA %.4f ms; bounds: fp32 CUDA cores %.4f ms, 3xTF32 "
+          "tensor cores %.4f ms" % (b, heads, t, d, new_ms, old_ms,
+                                    rows[-1]["library_ms"], nb32, nb))
     delta = (do * o).sum(-1)
     scale = 1.0 / d ** 0.5
     dims = (b, heads, t, t, d, 1, scale)
@@ -584,36 +642,72 @@ def check_gemm_kernels(dev):
         return (torch.randn(*shape, generator=gen, device=dev)
                 * scale).to(dtype)
 
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bytes_ms": 0.0, "ops_ms": 0.0}
+    tot = {"ms": 0.0, "core_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
     err9 = 0.0
-    print("  [conv1x1_dgrad, bf16: (M, O, I) x launches a step: kernel / "
-          "plain / torch.matmul / bound ms]")
+
+    def dgrad_by(kernel, dy, w, dt):
+        """The wrapper's dx, checking that ``kernel`` (and only it) ran."""
+        before = (ck.CONV1X1_DGRAD.launches, ck.CONV1X1_DGRAD_CORE.launches)
+        dx = ck.conv1x1_dgrad(dy, w, dt)
+        after = (ck.CONV1X1_DGRAD.launches, ck.CONV1X1_DGRAD_CORE.launches)
+        want = tuple(b + (k is kernel) for b, k in zip(
+            before, (ck.CONV1X1_DGRAD, ck.CONV1X1_DGRAD_CORE)))
+        if after != want:
+            raise SmokeError("dgrad %s %s: launches went %s -> %s, not to %s"
+                             % (tuple(dy.shape) + (w.shape[1],), dt, before,
+                                after, kernel.name))
+        return dx
+
+    def core(dy, w):
+        """The cp.async + wmma core on a bf16 dgrad the TMA kernel takes
+        (for the in-turn comparison only)."""
+        m, o = dy.shape
+        dx = torch.empty((m, w.shape[1]), dtype=bf, device=dev)
+        ck.CONV1X1_DGRAD_CORE.launch(dev, dy.data_ptr(), w.data_ptr(),
+                                     dx.data_ptr(), m, o, w.shape[1], 1)
+        return dx
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print("  [conv1x1_dgrad, bf16: (M, O, I) x launches a step, tile N: TMA + "
+          "wgmma kernel / the earlier wmma core (in turns) / plain / "
+          "torch.matmul / bound ms]")
     for (m, o, i), n in DGRAD_SHAPES:
         dy, w = randn(m, o), randn(o, i, scale=0.07)
-        err9 = max(err9, max_err(ck.conv1x1_dgrad(dy, w, bf),
+        err9 = max(err9, max_err(dgrad_by(ck.CONV1X1_DGRAD, dy, w, bf),
                                  ck.conv1x1_dgrad_plain(dy, w, bf),
                                  BF16_TOL, "dgrad %d" % m))
-        t = cuda_ms(lambda j: ck.conv1x1_dgrad(dy, w, bf), 20)
+        tc, t = in_turns(lambda j: core(dy, w),
+                         lambda j: ck.conv1x1_dgrad(dy, w, bf), 20)
         tp = cuda_ms(lambda j: ck.conv1x1_dgrad_plain(dy, w, bf), 3)
         tl = cuda_ms(lambda j: torch.matmul(dy, w), 20)
         nbytes, flops = (m * o + o * i + m * i) * 2, 2 * m * o * i
         nb, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-        print("    (%d, %d, %d) x%d: %.4f / %.4f / %.4f / %.4f (%s)"
-              % (m, o, i, n, t, tp, tl, nb, by))
-        for k, v in (("ms", t), ("plain_ms", tp), ("library_ms", tl),
-                     ("bound_ms", nb)):
+        print("    (%d, %d, %d) x%d, N %d: %.4f / %.4f / %.4f / %.4f / %.4f "
+              "(%s)" % (m, o, i, n, ck.tma_tile_n(m, o, i, sms), t, tc, tp,
+                        tl, nb, by))
+        for k, v in (("ms", t), ("core_ms", tc), ("plain_ms", tp),
+                     ("library_ms", tl), ("bound_ms", nb)):
             tot[k] += n * v
         tot["bytes_ms" if by == "bytes" else "ops_ms"] += n * nb
         del dy, w
-    # fp32 (CUDA cores), a ragged M (no multiple of 128), and K, N that are
-    # no multiple of 16 bytes' worth of elements (the scalar load path)
-    for (m, o, i), dt in (((25088, 256, 1024), torch.float32),
-                          ((1000, 64, 256), bf), ((999, 60, 36), bf),
-                          ((777, 33, 65), torch.float32)):
+    print("    a step's 33 dgrads: TMA + wgmma %.4f ms, the earlier wmma core "
+          "%.4f ms, torch.matmul %.4f ms, bound %.4f ms"
+          % (tot["ms"], tot["core_ms"], tot["library_ms"], tot["bound_ms"]))
+    # ragged shapes, each with the kernel its shape takes: fp32 (the core's
+    # CUDA cores); M no multiple of 128, K no multiple of 64, N no multiple
+    # of 64 and a tile with a chunk wholly past N (TMA); K and N no multiple
+    # of 8 (the core's scalar path)
+    for (m, o, i), dt, kern in (
+            ((25088, 256, 1024), torch.float32, ck.CONV1X1_DGRAD_CORE),
+            ((1000, 64, 256), bf, ck.CONV1X1_DGRAD),
+            ((4097, 200, 72), bf, ck.CONV1X1_DGRAD),
+            ((50000, 96, 192), bf, ck.CONV1X1_DGRAD),
+            ((999, 60, 36), bf, ck.CONV1X1_DGRAD_CORE),
+            ((777, 33, 65), torch.float32, ck.CONV1X1_DGRAD_CORE)):
         dy, w = randn(m, o, dtype=dt), randn(o, i, scale=0.07, dtype=dt)
         tol = BF16_TOL if dt == bf else GEMM_F32_TOL
-        max_err(ck.conv1x1_dgrad(dy, w, dt), ck.conv1x1_dgrad_plain(dy, w, dt),
+        max_err(dgrad_by(kern, dy, w, dt), ck.conv1x1_dgrad_plain(dy, w, dt),
                 tol, "dgrad %d %s" % (m, str(dt)[6:]))
         if (m, o, i) == (25088, 256, 1024):
             nb, by = bound((m * o + o * i + m * i) * 4, 2 * m * o * i)
@@ -625,7 +719,7 @@ def check_gemm_kernels(dev):
                      cuda_ms(lambda j: torch.matmul(dy, w), 10), nb, by))
     rows = [{
         "name": "conv1x1_dgrad", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/gemm_kernels.cu",
+        "source": "mxnet_tpu_torch/csrc/gemm_sm90.cu",
         "replaces": "mxnet_tpu/ops/nn.py:94", "max_abs_err": err9,
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
@@ -1014,10 +1108,11 @@ def check_training_step(dev):
              worst["momentum"], STEP_TOL))
 
 
-_OWN_KERNELS = ("flash_prefill_kernel", "flash_bwd_dkdv_kernel",
+_OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dq_kernel", "layer_norm_op_kernel",
-                "sgd_mom_multi_kernel", "conv1x1_dgrad_kernel",
-                "mm_epilogue_kernel", "mm_stats_kernel")
+                "sgd_mom_multi_kernel", "conv1x1_dgrad_sm90_kernel",
+                "conv1x1_dgrad_kernel", "mm_epilogue_kernel",
+                "mm_stats_kernel")
 
 
 def _kernel_group(name):
@@ -1379,10 +1474,12 @@ def run_resnet_training(dev, card, mode):
         raise SmokeError("ResNet losses %s (%s): not finite, or the last not "
                          "below the warm-up's" % (losses, label))
     want = DGRAD_PER_STEP * steps if mode == "pallas" else 0
-    if counts["conv1x1_dgrad"] != want or counts["sgd_mom_multi"] != steps:
+    if (counts["conv1x1_dgrad"] != want or counts["conv1x1_dgrad_core"]
+            or counts["sgd_mom_multi"] != steps):
         raise SmokeError("ResNet drive (%s): conv1x1_dgrad launched %d times, "
-                         "sgd_mom_multi %d, in %d steps"
+                         "the wmma core %d, sgd_mom_multi %d, in %d steps"
                          % (label, counts["conv1x1_dgrad"],
+                            counts["conv1x1_dgrad_core"],
                             counts["sgd_mom_multi"], steps))
     if any(nn.relayout_copies.values()):
         raise SmokeError("ResNet drive (%s): NHWC tensors copied into row-"
@@ -1450,10 +1547,12 @@ def main():
         for line in _build.build_log(name).splitlines():
             mangled = re.search(r"Compiling entry function '(\w+)'", line)
             entry = mangled and re.search(
-                r"\d([a-z][a-z0-9_]*_kernel)(?:ILi(\d+)E|I(13__nv_bfloat16|f)"
-                r"Lb(\d)E|E)", mangled.group(1))
+                r"\d([a-z][a-z0-9_]*_kernel)(?:I((?:Li\d+E)+)|"
+                r"I(13__nv_bfloat16|f)Lb(\d)E|E)", mangled.group(1))
             if entry:
-                targs = entry.group(2) or (entry.group(3) and "%s, %s" % (
+                ints = entry.group(2) and re.findall(r"\d+", entry.group(2))
+                targs = (ints and ", ".join(ints)) or (
+                    entry.group(3) and "%s, %s" % (
                     "bf16" if entry.group(3) != "f" else "fp32",
                     "vector" if entry.group(4) == "1" else "scalar"))
                 print("  %s: %s%s" % (name, entry.group(1),

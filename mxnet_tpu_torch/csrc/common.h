@@ -24,6 +24,14 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // before the row max, so exp() of a masked lane underflows to exactly 0.
 constexpr float kNegInf = -1e30f;
 
+// 16 bytes global -> shared, asynchronously (cp.async); zero-filled when
+// !pred, and then no byte of src is read.
+__device__ __forceinline__ void cp_async16(void* smem, const void* src, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);

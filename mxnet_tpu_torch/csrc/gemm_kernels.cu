@@ -1,19 +1,24 @@
 // GEMM kernels of mxnet_tpu_torch: C[M, N] = A[M, K] @ B[K, N], both
 // operands row-major, fp32 accumulators, one of three epilogues.
 //
-// They replace three Pallas kernels of the JAX package, all products over
-// the 1x1 convolutions of ResNet-50's bottleneck blocks:
+// They replace two Pallas kernels of the JAX package and serve part of a
+// third, all products over the 1x1 convolutions of ResNet-50's bottleneck
+// blocks:
 //
-//   conv1x1_dgrad_kernel  mxnet_tpu/ops/nn.py _conv1x1_dgrad_pallas: the
-//                         dgrad dx = dy @ w of a 1x1 stride-1 NHWC conv,
-//                         stored in the operands' type;
 //   mm_epilogue_kernel    tools/bottleneck_probe.py mm_epilogue:
 //                         relu?(scale * acc + bias [+ res]);
 //   mm_stats_kernel       tools/bottleneck_probe.py mm_with_stats: the
 //                         product plus per-block column sums of acc and
 //                         acc^2, taken on the fp32 accumulator before it is
 //                         rounded (a second pass in the wrapper adds the
-//                         per-block partials).
+//                         per-block partials);
+//   conv1x1_dgrad_kernel  the dgrad dx = dy @ w of a 1x1 stride-1 NHWC conv
+//                         (mxnet_tpu/ops/nn.py _conv1x1_dgrad_pallas) in
+//                         fp32, and in bf16 where TMA cannot take the shape
+//                         (O or I no multiple of 8, or unaligned tensors);
+//                         every other bf16 dgrad, the bench ResNet-50's
+//                         included, runs the TMA + wgmma kernel of
+//                         gemm_sm90.cu.  The Python wrapper chooses by shape.
 //
 // What bounds them on an H100: at the bench's shapes (M = batch * H * W up
 // to 401408 rows, K and N 64..2048) most products do 64-256 flops per byte
@@ -33,7 +38,8 @@
 // zero-filled on load and masked on store; the vector path (cp.async of 16
 // bytes) needs K and N to be multiples of 16 bytes' worth of elements and
 // 16-byte aligned tensors, else a scalar path loads element by element.
-// wgmma and TMA are left for a later version.
+// gemm_sm90.cu shows what TMA, wgmma and a deeper ring buy over this core
+// at the dgrad's shapes (root PERF.md); the probe's epilogues keep it.
 #include <cuda_bf16.h>
 #include <mma.h>
 
@@ -89,15 +95,6 @@ __device__ __forceinline__ bf16 from_float<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !pred (no
-// byte of src is read then).
-__device__ __forceinline__ void cp_async16(void* smem, const void* src,
-                                           bool pred) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n));
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

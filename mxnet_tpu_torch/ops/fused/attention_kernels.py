@@ -7,10 +7,12 @@ Pallas flash forward and backward of ``mxnet_tpu/ops/attention.py``
 kernels are in ``csrc/attention_kernels.cu``; the plain versions, which a
 CPU tensor gets, are in :mod:`mxnet_tpu_torch.ops.attention`.
 
-The flash kernels reorder the softmax sums (online softmax over key
-tiles; the backward sums its gradients tile by tile), so they agree with
-the plain versions to fp32 rounding, not bitwise; the paged decode kernel
-likewise sums in its own order.
+The flash forward runs its two products on the tensor cores in 3xTF32
+(each fp32 operand split into two TF32 parts, three products), which keeps
+fp32 accuracy; it and the backward reorder the softmax sums (online
+softmax over key tiles; the backward sums its gradients tile by tile), so
+they agree with the plain versions to fp32 rounding, not bitwise; the
+paged decode kernel likewise sums in its own order.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ from ...base import MXNetError
 from .. import attention as _att
 from .._build import Kernel, device_kind, require
 
-__all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DQ", "FLASH_PREFILL", "PAGED_DECODE",
-           "fused_flash_bwd", "fused_flash_fwd", "fused_paged_decode_attention",
+__all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DQ", "FLASH_FWD_SIMT",
+           "FLASH_PREFILL", "PAGED_DECODE", "fused_flash_bwd",
+           "fused_flash_fwd", "fused_paged_decode_attention",
            "fused_prefill_attention"]
 
 _HEAD_DIMS = (32, 64, 128)
@@ -33,6 +36,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 FLASH_PREFILL = Kernel(
     "flash_prefill", "attention_kernels", "mxtpu_flash_prefill",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F])
+# The earlier forward, on CUDA cores (D = 64 only), with
+# FLASH_PREFILL's arguments: a run on the card times it beside the
+# tensor-core kernel; no path of the package launches it.
+FLASH_FWD_SIMT = Kernel(
+    "flash_fwd_simt", "attention_kernels", "mxtpu_flash_fwd_simt",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F])
 FLASH_BWD_DKDV = Kernel(
     "flash_bwd_dkdv", "attention_kernels", "mxtpu_flash_bwd_dkdv",

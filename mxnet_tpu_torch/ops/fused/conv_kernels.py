@@ -1,12 +1,22 @@
-"""The 1x1-conv dgrad: CUDA kernel wrapper and plain version.
+"""The 1x1-conv dgrad: CUDA kernel wrappers and plain version.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` ``_conv1x1_dgrad_pallas``: the input
 gradient of a 1x1 stride-1 NHWC convolution, ``dx = dy @ w`` over rows
-``M = B*H*W``, as one product with fp32 accumulation.  The kernel is
-``conv1x1_dgrad_kernel`` in ``csrc/gemm_kernels.cu`` (a tiled GEMM core
-shared with the bottleneck probe's two epilogue kernels).  The registry's
+``M = B*H*W``, as one product with fp32 accumulation.  The registry's
 ``Convolution`` op calls :func:`conv1x1_dgrad` from its 1x1 backward when
 ``MXTPU_CONV1X1=pallas`` (``ops/nn.py``).
+
+Two kernels, chosen by shape and type alone:
+
+* ``conv1x1_dgrad`` (``csrc/gemm_sm90.cu``): bf16 with TMA loads and
+  wgmma, persistent blocks.  TMA needs 16-byte aligned tensors and row
+  strides, so it takes bf16 with ``O`` and ``I`` multiples of 8 (every
+  dgrad of the bench ResNet-50); ragged ``M`` is fine.
+* ``conv1x1_dgrad_core`` (``csrc/gemm_kernels.cu``): the cp.async + wmma
+  (bf16) / fmaf (fp32) GEMM core shared with the bottleneck probe, for fp32
+  and for the shapes TMA cannot take.
+
+Neither is a fallback of the other: a build or launch error raises.
 """
 
 from __future__ import annotations
@@ -18,13 +28,19 @@ import torch
 from ...base import MXNetError
 from .._build import Kernel, device_kind, require
 
-__all__ = ["CONV1X1_DGRAD", "conv1x1_dgrad", "conv1x1_dgrad_plain"]
+__all__ = ["CONV1X1_DGRAD", "CONV1X1_DGRAD_CORE", "conv1x1_dgrad",
+           "conv1x1_dgrad_plain", "dgrad_kernel_for", "tma_tile_n"]
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 CONV1X1_DGRAD = Kernel(
-    "conv1x1_dgrad", "gemm_kernels", "mxtpu_conv1x1_dgrad",
-    [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int])
+    "conv1x1_dgrad", "gemm_sm90", "mxtpu_conv1x1_dgrad_sm90",
+    [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I])
+CONV1X1_DGRAD_CORE = Kernel(
+    "conv1x1_dgrad_core", "gemm_kernels", "mxtpu_conv1x1_dgrad",
+    [_P, _P, _P, ctypes.c_longlong, _I, _I, _I])
+# Rows of the TMA kernel's output tile; the N of a tile is 64, 128 or 256.
+_TMA_BM = 128
 
 # The dtypes the JAX op's 1x1 path is eligible for (nn.py _conv1x1_eligible).
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -33,6 +49,38 @@ _DTYPES = (torch.bfloat16, torch.float32)
 def conv1x1_dgrad_plain(dy2, w, out_dtype):
     """``dy2 [M, O] @ w [O, I]`` summed in fp32, cast to ``out_dtype``."""
     return (dy2.float() @ w.float()).to(out_dtype)
+
+
+def dgrad_kernel_for(dtype, o, i, *ptrs):
+    """The kernel that computes a dgrad of ``dtype`` with ``O = o`` and
+    ``I = i`` from tensors at addresses ``ptrs``: :data:`CONV1X1_DGRAD`
+    where TMA can take it (bf16, ``O`` and ``I`` multiples of 8, 16-byte
+    aligned), else :data:`CONV1X1_DGRAD_CORE`."""
+    if (dtype == torch.bfloat16 and o % 8 == 0 and i % 8 == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return CONV1X1_DGRAD
+    return CONV1X1_DGRAD_CORE
+
+
+def tma_tile_n(m, k, n, sms):
+    """N of the TMA kernel's output tile (64, 128 or 256) for ``dy [m, k]
+    @ w [k, n]`` on ``sms`` SMs.
+
+    Every tile streams its [128, k] rows of dy and the [k, N] columns of w
+    from L2 and writes [128, N]; the busiest SM runs ``ceil(tiles / sms)``
+    of them.  The tile that moves the fewest bytes through the busiest SM
+    wins, the wider on a tie (it reads each row block of dy fewer times).
+    Up to N = 256 the whole of ``n`` in one tile reads dy once; at K >= 512
+    the per-tile traffic of w and the last partial wave decide."""
+    best, best_cost = None, None
+    for tile in (256, 128, 64):
+        if tile > 64 and tile // 2 >= n:
+            continue   # a half-empty tile
+        tiles = -(-m // _TMA_BM) * -(-n // tile)
+        cost = -(-tiles // sms) * (_TMA_BM * k + k * tile + _TMA_BM * tile)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = tile, cost
+    return best
 
 
 def conv1x1_dgrad(dy2, w, out_dtype):
@@ -53,7 +101,14 @@ def conv1x1_dgrad(dy2, w, out_dtype):
     require("conv1x1_dgrad", dy2, out_dtype)
     require("conv1x1_dgrad", w, out_dtype)
     dx = torch.empty((m, i), dtype=out_dtype, device=dy2.device)
-    CONV1X1_DGRAD.launch(dy2.device, dy2.data_ptr(), w.data_ptr(),
-                         dx.data_ptr(), m, o, i,
-                         int(out_dtype == torch.bfloat16))
+    ptrs = (dy2.data_ptr(), w.data_ptr(), dx.data_ptr())
+    kernel = dgrad_kernel_for(out_dtype, o, i, *ptrs)
+    if kernel is CONV1X1_DGRAD_CORE:
+        kernel.launch(dy2.device, *ptrs, m, o, i,
+                      int(out_dtype == torch.bfloat16))
+        return dx
+    sms = torch.cuda.get_device_properties(dy2.device).multi_processor_count
+    tile_n = tma_tile_n(m, o, i, sms)
+    tiles = -(-m // _TMA_BM) * -(-i // tile_n)
+    kernel.launch(dy2.device, *ptrs, m, o, i, tile_n, min(tiles, sms))
     return dx

@@ -163,6 +163,53 @@ def test_dgrad_plain_matches_pallas_kernel():
         assert pnn._conv1x1_pick_bm(m) == jnn._conv1x1_pick_bm(m), m
 
 
+def test_dgrad_kernel_choice():
+    """The CUDA wrapper's choice, decided by shape and type alone: bf16 with
+    O and I multiples of 8 and 16-byte aligned tensors goes to the TMA +
+    wgmma kernel (``conv1x1_dgrad``, ``gemm_sm90``), anything else to the
+    wmma/fmaf core (``conv1x1_dgrad_core``, ``gemm_kernels``); the TMA
+    kernel's tile width at the bench ResNet-50's 12 dgrad shapes; and CPU
+    tensors launch neither."""
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    bf, f32 = torch.bfloat16, torch.float32
+    tma, core = ck.CONV1X1_DGRAD, ck.CONV1X1_DGRAD_CORE
+    assert (tma.name, tma.lib) == ("conv1x1_dgrad", "gemm_sm90")
+    assert (core.name, core.lib) == ("conv1x1_dgrad_core", "gemm_kernels")
+    for dtype, o, i, ptrs, want in (
+            (bf, 64, 256, (0, 4096, 8192), tma),
+            (bf, 2048, 512, (16, 32, 48), tma),
+            (bf, 200, 72, (0, 0, 0), tma),          # K, N ragged but 8-aligned
+            (f32, 64, 256, (0, 0, 0), core),        # fp32 stays on the core
+            (bf, 60, 64, (0, 0, 0), core),          # O % 8
+            (bf, 64, 36, (0, 0, 0), core),          # I % 8
+            (bf, 64, 64, (0, 8, 0), core)):         # an 8-byte aligned tensor
+        assert ck.dgrad_kernel_for(dtype, o, i, *ptrs) is want, (dtype, o, i)
+    # (M, O, I) -> N of a tile on 132 SMs: the whole of N up to 256, except
+    # where K >= 1024 makes w's traffic per tile and the last partial wave
+    # cost more than reading a dy row block twice
+    table = {(401408, 64, 64): 64, (401408, 256, 64): 64,
+             (401408, 64, 256): 256, (401408, 128, 256): 256,
+             (100352, 512, 128): 128, (100352, 128, 512): 256,
+             (100352, 256, 512): 256, (25088, 1024, 256): 128,
+             (25088, 256, 1024): 256, (25088, 512, 1024): 256,
+             (6272, 2048, 512): 256, (6272, 512, 2048): 256}
+    for (m, o, i), want in table.items():
+        assert ck.tma_tile_n(m, o, i, 132) == want, (m, o, i)
+    for m, o, i, sms in ((1000, 64, 256, 132), (4097, 200, 72, 132),
+                         (50000, 96, 192, 132), (130, 8, 8, 1),
+                         (6272, 2048, 512, 16)):
+        tile = ck.tma_tile_n(m, o, i, sms)
+        assert tile in (64, 128, 256) and (tile == 64 or tile // 2 < i)
+    reset_launch_counts()
+    rs = np.random.RandomState(0)
+    dy, w = (torch.from_numpy(rs.randn(*s).astype(np.float32)).to(bf)
+             for s in ((256, 64), (64, 32)))
+    assert tuple(ck.conv1x1_dgrad(dy, w, bf).shape) == (256, 32)
+    counts = launch_counts()
+    assert counts["conv1x1_dgrad"] == counts["conv1x1_dgrad_core"] == 0
+
+
 # The cases of this file (and of the other slice-3 test files) run as
 # loops inside few test functions.  Under pytest-xdist's load scheduler
 # (``-n 6 --dist load``) each worker's first chunk is a run of consecutive

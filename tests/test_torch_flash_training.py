@@ -98,7 +98,7 @@ def test_cpu_training_path_launches_no_kernel():
     patt.flash_attention(*xs, causal=True).sum().backward()
     counts = launch_counts()
     assert counts["flash_prefill"] == counts["flash_bwd_dkdv"] \
-        == counts["flash_bwd_dq"] == 0
+        == counts["flash_bwd_dq"] == counts["flash_fwd_simt"] == 0
 
 
 def test_flash_wrappers_refuse_other_devices():
