@@ -18,11 +18,15 @@ Phases, each fatal on failure:
    GEMMs at its five shapes) and at a ragged shape, with its time, the plain
    version's time, the time of one library call computing the same function
    where there is one, and the least time the card could take (its bound).
-   The flash forward (3xTF32 on tensor cores) is also timed in turns with
-   the earlier CUDA-core forward, and given both bounds (fp32 CUDA cores,
-   3xTF32 tensor cores; its JSON bound is the latter); the bf16 dgrad (TMA +
-   wgmma) in turns with the earlier wmma core, shape by shape, and each
-   dgrad shape is checked to reach the kernel its shape takes.
+   The flash forward and the backward's two passes (3xTF32 on tensor
+   cores) are also timed in turns with the earlier CUDA-core kernels, and
+   given both bounds (fp32 CUDA cores, 3xTF32 tensor cores; their JSON
+   bound is the latter); two backward calls on the same inputs must give
+   the same bits, and the backward's errors against float64 are printed
+   beside the plain version's and SDPA's, at T 2048 and 4096; the bf16
+   dgrad (TMA + wgmma) in turns with the earlier wmma core, shape by
+   shape, and each dgrad shape is checked to reach the kernel its shape
+   takes.
 4. The generation lane at the full width of the LM the repo benches
    (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
    vocab 32000, seq_len 2048), fp32, random weights from a seed: an
@@ -168,10 +172,11 @@ def bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_fwd_bounds(nbytes, flops):
-    """The flash forward's two bounds: fp32 on CUDA cores, and the fp32-
-    accurate least time on the tensor cores, 3xTF32 (three TF32 products
-    for each fp32 one, at the TF32 rate): ``((ms, by), (ms, by))``."""
+def flash_bounds(nbytes, flops):
+    """A flash kernel's two bounds (forward or a backward pass): fp32 on
+    CUDA cores, and the fp32-accurate least time on the tensor cores,
+    3xTF32 (three TF32 products for each fp32 one, at the TF32 rate):
+    ``((ms, by), (ms, by))``."""
     return bound(nbytes, flops), bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
 
 
@@ -202,11 +207,15 @@ def simt_flash(q, k, v, causal, with_lse):
 
 
 def max_err(got, want, tol, name):
-    err = (got - want).abs().max().item()
-    ok = bool(np.isfinite(err)) and bool(
-        ((got - want).abs() <= tol + tol * want.abs()).all().item())
-    print("  %-14s max|err| %.3e  (tolerance %.0e abs + rel)"
-          % (name, err, tol))
+    """Hold ``got`` within ``tol`` abs + rel of ``want``; prints the largest
+    error and the largest share of the gate any element uses,
+    ``|err| / (tol + tol |want|)`` (the gate fails above 1)."""
+    diff = (got - want).abs()
+    err = diff.max().item()
+    share = (diff / (tol + tol * want.abs())).max().item()
+    ok = bool(np.isfinite(err)) and share <= 1.0
+    print("  %-14s max|err| %.3e  share of gate %.3f  (tolerance %.0e abs "
+          "+ rel)" % (name, err, share, tol))
     if not ok:
         raise SmokeError("%s kernel disagrees with its plain version "
                          "(max |err| %.3e)" % (name, err))
@@ -277,8 +286,8 @@ def check_kernels(dev, cfg):
             att.stable_causal_attention_plain(qr, kr, vr), FLASH_TOL,
             "flash T=333")
     pairs = t * (t + 1) // 2
-    (nb32, _), (nb, by) = flash_fwd_bounds(4 * q.numel() * 4,
-                                           4 * d * heads * pairs)
+    (nb32, _), (nb, by) = flash_bounds(4 * q.numel() * 4,
+                                       4 * d * heads * pairs)
     old_ms, new_ms = in_turns(
         lambda i: simt_flash(q, k, v, True, False),
         lambda i: ak.fused_prefill_attention(q, k, v), 100)
@@ -374,6 +383,23 @@ def exact(got, want, name):
     return err
 
 
+def float64_errors(inputs, grads, tag):
+    """Print the largest error of each ``(dq, dk, dv)`` in ``grads``
+    against the float64 gradients of ``inputs`` (q, k, v, do; causal,
+    ``flash_fwd_plain`` then ``flash_bwd_plain`` in float64): a control
+    reading, not a gate."""
+    from mxnet_tpu_torch.ops import attention as att
+
+    q, k, v, do = (x.double() for x in inputs)
+    o, lse = att.flash_fwd_plain(q, k, v, True)
+    want = att.flash_bwd_plain(q, k, v, o, lse, do, True)
+    del q, k, v, do, o, lse
+    for name, got in grads.items():
+        print("  [%s] %-10s against float64: dq %.3e, dk %.3e, dv %.3e"
+              % ((tag, name) + tuple((g.double() - w).abs().max().item()
+                                     for g, w in zip(got, want))))
+
+
 def check_training_kernels(dev, cfg):
     """The training path's kernels against their plain versions at the
     shapes the bench step gives them (batch 8, T 2048, causal, D 64; the
@@ -412,7 +438,36 @@ def check_training_kernels(dev, cfg):
     err_dq = max_err(dq, want[0], FLASH_TOL, "flash dq")
     err_dk = max_err(dk, want[1], FLASH_TOL, "flash dk")
     err_dv = max_err(dv, want[2], FLASH_TOL, "flash dv")
-    del want, o_p, lse_p
+    # control readings, not gates: SDPA's backward (3xTF32 on the tensor
+    # cores too) on the same inputs against the same plain gradients, and
+    # the kernels', the plain version's and SDPA's against float64
+    q_, k_, v_ = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+    lib_grads = torch.autograd.grad(lib_out, (q_, k_, v_), do,
+                                    retain_graph=True)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), lib_grads, want):
+        diff = (g_ - w_).abs()
+        print("  %-14s max|err| %.3e  share of gate %.3f  (SDPA's backward, "
+              "not gated)" % ("sdpa " + name, diff.max().item(),
+                              (diff / (FLASH_TOL + FLASH_TOL * w_.abs()))
+                              .max().item()))
+    float64_errors((q, k, v, do), {"kernels": (dq, dk, dv), "plain fp32": want,
+                                   "SDPA": lib_grads}, "T=%d" % t)
+    del want, o_p, lse_p, lib_grads
+    # twice the training length: the gradients sum over twice as many
+    # streamed tiles
+    ql, kl, vl, dol = (randn(1, heads, 2 * t, d) for _ in range(4))
+    ol, lsel = ak.fused_flash_fwd(ql, kl, vl, True)
+    got = ak.fused_flash_bwd(ql, kl, vl, ol, lsel, dol, True)
+    want = att.flash_bwd_plain(ql, kl, vl, ol, lsel, dol, True)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        max_err(g_, w_, FLASH_TOL, "%s T=%d" % (name, 2 * t))
+    xs = [x.clone().requires_grad_(True) for x in (ql, kl, vl)]
+    sdpa = torch.autograd.grad(F.scaled_dot_product_attention(
+        *xs, is_causal=True), xs, dol)
+    float64_errors((ql, kl, vl, dol), {"kernels": got, "plain fp32": want,
+                                       "SDPA": sdpa}, "B=1 T=%d" % (2 * t))
+    del ql, kl, vl, dol, ol, lsel, got, want, xs, sdpa
     # ragged, not causal, a scale other than 1/sqrt(D), and Tk != T
     # (batch 8 gives the forward blocks of two warpgroups, batch 1 of one)
     for bq, tq, tk in ((1, 333, 333), (1, 333, 300), (TRAIN_BATCH, 333, 300)):
@@ -427,13 +482,21 @@ def check_training_kernels(dev, cfg):
         want = att.flash_bwd_plain(qr, kr, vr, orr, lr, dor, False, 0.3)
         for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
             max_err(g_, w_, FLASH_TOL, "%s %s" % (name, tag))
+    # the other head dims: D = 32 on the tensor cores, D = 128 on the
+    # CUDA-core pair (ak.bwd_kernels), causal with Tk != T
+    for dh in (32, 128):
+        qr, dor = randn(2, 4, 150, dh), randn(2, 4, 150, dh)
+        kr, vr = randn(2, 4, 130, dh), randn(2, 4, 130, dh)
+        orr, lr = ak.fused_flash_fwd(qr, kr, vr, True)
+        got = ak.fused_flash_bwd(qr, kr, vr, orr, lr, dor, True)
+        want = att.flash_bwd_plain(qr, kr, vr, orr, lr, dor, True)
+        for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            max_err(g_, w_, FLASH_TOL, "%s D=%d" % (name, dh))
 
     pairs = b * heads * t * (t + 1) // 2
     nbytes = q.numel() * 4
-    (nb32, _), (nb, by) = flash_fwd_bounds(4 * nbytes + lse.numel() * 4,
-                                           4 * d * pairs)
-    q_, k_, v_ = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+    (nb32, _), (nb, by) = flash_bounds(4 * nbytes + lse.numel() * 4,
+                                       4 * d * pairs)
     old_ms, new_ms = in_turns(lambda i: simt_flash(q, k, v, True, True),
                               lambda i: ak.fused_flash_fwd(q, k, v, True), 10)
     rows.append({
@@ -450,6 +513,16 @@ def check_training_kernels(dev, cfg):
           "turns), SDPA %.4f ms; bounds: fp32 CUDA cores %.4f ms, 3xTF32 "
           "tensor cores %.4f ms" % (b, heads, t, d, new_ms, old_ms,
                                     rows[-1]["library_ms"], nb32, nb))
+    # each pass writes only its own rows (no atomics): the same inputs give
+    # the same bits
+    again = ak.fused_flash_bwd(q, k, v, o, lse, do, True)
+    for name, first, second in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        if not torch.equal(first, second):
+            raise SmokeError("flash backward: %s differs between two calls "
+                             "on the same inputs" % name)
+    print("  flash backward: two calls on the same inputs give bitwise-equal "
+          "dq, dk, dv")
+    del again
     delta = (do * o).sum(-1)
     scale = 1.0 / d ** 0.5
     dims = (b, heads, t, t, d, 1, scale)
@@ -468,25 +541,38 @@ def check_training_kernels(dev, cfg):
                  F.scaled_dot_product_attention(qa, ka, va, is_causal=True),
                  (qa, ka, va), do), 5)))
     del qa, ka, va
-    nb, by = bound(6 * nbytes + 2 * lse.numel() * 4, 8 * d * pairs)
+
+    def launches(kernel, *outs):
+        return lambda i: kernel.launch(dev, *ptrs, *outs, *dims)
+
+    kv_out, q_out = (dk.data_ptr(), dv.data_ptr()), (dq.data_ptr(),)
+    old_kv, new_kv = in_turns(launches(ak.FLASH_BWD_DKDV_SIMT, *kv_out),
+                              launches(ak.FLASH_BWD_DKDV, *kv_out), 10)
+    old_q, new_q = in_turns(launches(ak.FLASH_BWD_DQ_SIMT, *q_out),
+                            launches(ak.FLASH_BWD_DQ, *q_out), 10)
+    (nb32_kv, _), (nb_kv, by_kv) = flash_bounds(
+        6 * nbytes + 2 * lse.numel() * 4, 8 * d * pairs)
+    (nb32_q, _), (nb_q, by_q) = flash_bounds(
+        5 * nbytes + 2 * lse.numel() * 4, 6 * d * pairs)
+    print("  [flash backward, training shape] 3xTF32 kernels: dK/dV %.4f ms "
+          "+ dQ %.4f ms = %.4f ms; the earlier CUDA-core kernels (in turns): "
+          "%.4f + %.4f = %.4f ms; SDPA's autograd backward %.4f ms; bounds: "
+          "fp32 CUDA cores %.4f + %.4f ms, 3xTF32 tensor cores %.4f + %.4f "
+          "ms" % (new_kv, new_q, new_kv + new_q, old_kv, old_q,
+                  old_kv + old_q, lib_bwd, nb32_kv, nb32_q, nb_kv, nb_q))
     rows.append({
         "name": "flash_bwd_dkdv", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/attention_kernels.cu",
         "replaces": "mxnet_tpu/ops/attention.py:572",
-        "max_abs_err": max(err_dk, err_dv),
-        "ms": cuda_ms(lambda i: ak.FLASH_BWD_DKDV.launch(
-            dev, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims), 10),
-        "plain_ms": plain_bwd, "bound_ms": nb, "bound_by": by,
+        "max_abs_err": max(err_dk, err_dv), "ms": new_kv,
+        "plain_ms": plain_bwd, "bound_ms": nb_kv, "bound_by": by_kv,
         "library_ms": lib_bwd})
-    nb, by = bound(5 * nbytes + 2 * lse.numel() * 4, 6 * d * pairs)
     rows.append({
         "name": "flash_bwd_dq", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/attention_kernels.cu",
         "replaces": "mxnet_tpu/ops/attention.py:596",
-        "max_abs_err": err_dq,
-        "ms": cuda_ms(lambda i: ak.FLASH_BWD_DQ.launch(
-            dev, *ptrs, dq.data_ptr(), *dims), 10),
-        "plain_ms": plain_bwd, "bound_ms": nb, "bound_by": by,
+        "max_abs_err": err_dq, "ms": new_q,
+        "plain_ms": plain_bwd, "bound_ms": nb_q, "bound_by": by_q,
         "library_ms": lib_bwd})
     del q, k, v, do, o, lse, dq, dk, dv, delta, q_, k_, v_, lib_out
 
@@ -1109,7 +1195,8 @@ def check_training_step(dev):
 
 
 _OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel", "layer_norm_op_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dkdv_simt_kernel",
+                "flash_bwd_dq_simt_kernel", "layer_norm_op_kernel",
                 "sgd_mom_multi_kernel", "conv1x1_dgrad_sm90_kernel",
                 "conv1x1_dgrad_kernel", "mm_epilogue_kernel",
                 "mm_stats_kernel")
@@ -1169,8 +1256,18 @@ def run_training(dev, cfg, card):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SmokeError("training losses %s: not finite and falling"
                          % losses)
+    # the backward pair runs once a layer a step, on the tensor cores (the
+    # CUDA-core pair serves only D = 128)
+    steps, layers = 1 + DRIVE_STEPS, cfg["num_layers"]
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        if counts.get(name, 0) != layers * steps:
+            raise SmokeError("%s launched %d times in %d steps of %d layers"
+                             % (name, counts.get(name, 0), steps, layers))
+    for name in ("flash_bwd_dkdv_simt", "flash_bwd_dq_simt"):
+        if counts.get(name, 0):
+            raise SmokeError("%s launched on the training path" % name)
     p50 = float(np.percentile(step_ms, 50))
-    per_step = {n: c / (1 + DRIVE_STEPS) for n, c in counts.items() if c}
+    per_step = {n: c / steps for n, c in counts.items() if c}
     print("  [%s] step ms p50 %.1f (%s), tokens/s %.0f, peak memory %.2f "
           "GB" % (card, p50, ", ".join("%.1f" % m for m in step_ms),
                   tokens / p50 * 1e3, peak / 1e9))
@@ -1558,6 +1655,8 @@ def main():
                 print("  %s: %s%s" % (name, entry.group(1),
                                       "<%s>" % targs if targs else ""))
             elif "registers" in line or "spill" in line:
+                print("  %s:   %s" % (name, line.strip()))
+            elif "C7520" in line:   # ptxas serialized a kernel's wgmma
                 print("  %s:   %s" % (name, line.strip()))
 
     print("== phase 3: kernels against their plain versions")

@@ -7,12 +7,15 @@ Pallas flash forward and backward of ``mxnet_tpu/ops/attention.py``
 kernels are in ``csrc/attention_kernels.cu``; the plain versions, which a
 CPU tensor gets, are in :mod:`mxnet_tpu_torch.ops.attention`.
 
-The flash forward runs its two products on the tensor cores in 3xTF32
-(each fp32 operand split into two TF32 parts, three products), which keeps
-fp32 accuracy; it and the backward reorder the softmax sums (online
+The flash forward and, for D of 32 and 64, the backward's two passes run
+every product on the tensor cores in 3xTF32 (each fp32 operand split into
+two TF32 parts, three products); at D = 128 the backward runs on the CUDA
+cores (:func:`bwd_kernels`).  They reorder the softmax sums (online
 softmax over key tiles; the backward sums its gradients tile by tile), so
-they agree with the plain versions to fp32 rounding, not bitwise; the
-paged decode kernel likewise sums in its own order.
+they agree with the plain versions to rounding, not bitwise; the paged
+decode kernel likewise sums in its own order.  ``chip_smoke.py`` prints
+the backward's errors against the plain version and, beside the plain
+version's own and SDPA's, against a float64 reference.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from ...base import MXNetError
 from .. import attention as _att
 from .._build import Kernel, device_kind, require
 
-__all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DQ", "FLASH_FWD_SIMT",
-           "FLASH_PREFILL", "PAGED_DECODE", "fused_flash_bwd",
+__all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DKDV_SIMT", "FLASH_BWD_DQ",
+           "FLASH_BWD_DQ_SIMT", "FLASH_FWD_SIMT", "FLASH_PREFILL",
+           "PAGED_DECODE", "bwd_kernels", "fused_flash_bwd",
            "fused_flash_fwd", "fused_paged_decode_attention",
            "fused_prefill_attention"]
 
@@ -48,6 +52,16 @@ FLASH_BWD_DKDV = Kernel(
     [_P] * 8 + [_I] * 6 + [_F])
 FLASH_BWD_DQ = Kernel(
     "flash_bwd_dq", "attention_kernels", "mxtpu_flash_bwd_dq",
+    [_P] * 7 + [_I] * 6 + [_F])
+# The backward's two passes on CUDA cores, with the arguments above: the
+# path for D = 128, where the tensor-core dK/dV pass would need more
+# registers than a thread has; a run on the card also times them beside
+# the tensor-core kernels.
+FLASH_BWD_DKDV_SIMT = Kernel(
+    "flash_bwd_dkdv_simt", "attention_kernels", "mxtpu_flash_bwd_dkdv_simt",
+    [_P] * 8 + [_I] * 6 + [_F])
+FLASH_BWD_DQ_SIMT = Kernel(
+    "flash_bwd_dq_simt", "attention_kernels", "mxtpu_flash_bwd_dq_simt",
     [_P] * 7 + [_I] * 6 + [_F])
 PAGED_DECODE = Kernel(
     "paged_decode", "attention_kernels", "mxtpu_paged_decode",
@@ -106,6 +120,14 @@ def fused_flash_fwd(q, k, v, causal=True, sm_scale=None):
     return out, lse
 
 
+def bwd_kernels(head_dim):
+    """The backward's ``(dK/dV, dQ)`` kernels for ``head_dim``: the
+    tensor-core pair for 32 and 64, the CUDA-core pair for 128."""
+    if head_dim == 128:
+        return FLASH_BWD_DKDV_SIMT, FLASH_BWD_DQ_SIMT
+    return FLASH_BWD_DKDV, FLASH_BWD_DQ
+
+
 def fused_flash_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None):
     """Flash attention backward → ``(dq, dk, dv)`` from the forward's
     inputs, its output ``o``, its ``lse`` and the output gradient ``do``.
@@ -113,7 +135,8 @@ def fused_flash_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None):
     CPU tensors: :func:`~mxnet_tpu_torch.ops.attention.flash_bwd_plain`.
     CUDA tensors: ``delta = rowsum(do * o)`` as a torch expression (the
     JAX wrapper also computes it outside its kernels), then the dK/dV
-    kernel and the dQ kernel, each writing only its own rows."""
+    kernel and the dQ kernel of :func:`bwd_kernels`, each writing only its
+    own rows (no atomics: the same inputs give the same bits)."""
     if device_kind((q, k, v, o, lse, do)) == "cpu":
         return _att.flash_bwd_plain(q, k, v, o, lse, do, causal, sm_scale)
     _check_flash("flash_bwd", q, k, v)
@@ -130,9 +153,9 @@ def fused_flash_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     dims = (bsz, heads, t_len, tk_len, dim, int(bool(causal)), scale)
-    FLASH_BWD_DKDV.launch(q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
-                          *dims)
-    FLASH_BWD_DQ.launch(q.device, *ptrs, dq.data_ptr(), *dims)
+    dkdv_kernel, dq_kernel = bwd_kernels(dim)
+    dkdv_kernel.launch(q.device, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
+    dq_kernel.launch(q.device, *ptrs, dq.data_ptr(), *dims)
     return dq, dk, dv
 
 

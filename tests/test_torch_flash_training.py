@@ -7,7 +7,8 @@ lse.  Backward: ``dq, dk, dv`` of the port's ``flash_attention``
 (``torch.autograd.Function``, plain versions on the CPU) against
 ``jax.grad`` of ``flash_attention(..., interpret=True)``, which runs the
 Pallas dk/dv and dq kernels in interpret mode.  Both causal values, T 64,
-a ragged T 72, Tk != T and a scale other than 1/sqrt(D).  Tolerances as in
+a ragged T 72, Tk != T, a scale other than 1/sqrt(D), and the head dims
+32 and 128 beside 16.  Tolerances as in
 ``tests/test_attention.py``: 2e-5 for the forward, 1e-4 for gradients
 (the frameworks sum in different orders).
 """
@@ -27,6 +28,17 @@ from mxnet_tpu_torch.ops.fused import attention_kernels as pak
 
 FWD_TOL = 2e-5
 GRAD_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on the test's own thread (see
+    ``tests/test_torch_attention.py``: torch's first multi-threaded
+    ``exp`` in a process can return one chunk at reduced accuracy)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def _inputs(t, tk, seed, b=1, h=2, d=16):
@@ -77,6 +89,41 @@ def test_flash_gradients_match_pallas_backward(t, tk, causal, scale):
                                    atol=GRAD_TOL)
 
 
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_gradients_match_pallas_backward_head_dims(d):
+    """The other head dims the backward takes (32 on the tensor-core
+    kernels, 128 on the CUDA-core pair), causal with Tk != T: the plain
+    versions against the Pallas backward in interpret mode."""
+    q, k, v, w = _inputs(24, 40, seed=d, d=d)
+
+    def loss(q, k, v):
+        return jnp.sum(jatt.flash_attention(q, k, v, causal=True,
+                                            interpret=True)
+                       * jnp.asarray(w))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    xs = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = patt.flash_attention(*xs, causal=True)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), xs)
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL)
+
+
+def test_backward_kernels_by_head_dim():
+    """D 32 and 64 take the tensor-core pair; D 128, where the
+    tensor-core dK/dV pass would need more registers than a thread has, the
+    CUDA-core pair, counted under its own names."""
+    for d in (32, 64):
+        assert pak.bwd_kernels(d) == (pak.FLASH_BWD_DKDV, pak.FLASH_BWD_DQ)
+    assert pak.bwd_kernels(128) == (pak.FLASH_BWD_DKDV_SIMT,
+                                    pak.FLASH_BWD_DQ_SIMT)
+    names = [kern.name for kern in pak.bwd_kernels(64)
+             + pak.bwd_kernels(128)]
+    assert names == ["flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_simt",
+                     "flash_bwd_dq_simt"]
+
+
 def test_backward_plain_agrees_with_autograd_of_the_forward():
     """The plain backward from lse equals autograd through the plain
     forward (so the lse convention is the forward's own), causal, with a
@@ -98,7 +145,8 @@ def test_cpu_training_path_launches_no_kernel():
     patt.flash_attention(*xs, causal=True).sum().backward()
     counts = launch_counts()
     assert counts["flash_prefill"] == counts["flash_bwd_dkdv"] \
-        == counts["flash_bwd_dq"] == counts["flash_fwd_simt"] == 0
+        == counts["flash_bwd_dq"] == counts["flash_fwd_simt"] \
+        == counts["flash_bwd_dkdv_simt"] == counts["flash_bwd_dq_simt"] == 0
 
 
 def test_flash_wrappers_refuse_other_devices():
