@@ -26,7 +26,13 @@ Phases, each fatal on failure:
    beside the plain version's and SDPA's, at T 2048 and 4096; the bf16
    dgrad (TMA + wgmma) in turns with the earlier wmma core, shape by
    shape, and each dgrad shape is checked to reach the kernel its shape
-   takes.
+   takes.  The LayerNorm op (one warp a row, registers) in fp32, bf16 and
+   fp16 at the training shape and at a ragged C, in turns with its first
+   design (v1); the paged decode (split over the context, partials merged
+   in order) in fp32 and with bf16 pools at the lane's 8 sequences, at
+   B 1 and at a context of 1, two calls giving equal bits, in turns with
+   its first design (v1).  The earlier kernels kept for these timings must
+   launch on no main path.
 4. The generation lane at the full width of the LM the repo benches
    (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
    vocab 32000, seq_len 2048), fp32, random weights from a seed: an
@@ -125,6 +131,10 @@ NEW_TOKENS = [32, 40, 48, 56, 64, 64, 48, 64]
 CHECKED = (0, 7)            # requests whose logits meet the full forward
 LANE_KERNELS = ("flash_prefill", "paged_decode", "lm_layer_norm",
                 "lm_gelu_bias")
+# Kernels replaced by a redesign and kept only for the in-turn timings of
+# phase 3 (the CUDA-core backward pair also serves head dim 128, which no
+# main path runs; phase 6 checks it stays off the LM path).
+EARLIER_KERNELS = ("flash_fwd_simt", "layer_norm_op_v1", "paged_decode_v1")
 
 
 class SmokeError(Exception):
@@ -307,15 +317,14 @@ def check_kernels(dev, cfg):
           "%.4f ms" % (heads, t, d, new_ms, old_ms, rows[-1]["library_ms"],
                        nb32, nb))
 
-    # paged decode: 8 sequences through one layer's pool; timed over all
-    # layers' pools in turn, as a decode step reads them
-    layers = cfg["num_layers"]
-    bsz = len(PROMPTS)
-    max_blocks = -(-cfg["seq_len"] // BLOCK_SIZE)
-    ctx = np.array([p + n for p, n in zip(PROMPTS, NEW_TOKENS)], np.int32)
-    k_pages = randn(layers, NUM_BLOCKS, BLOCK_SIZE, heads, d)
-    v_pages = randn(layers, NUM_BLOCKS, BLOCK_SIZE, heads, d)
-    tables = np.zeros((bsz, max_blocks), np.int32)
+    rows.append(check_paged_decode(dev, cfg, randn))
+    return rows
+
+
+def _paged_tables(ctx, max_blocks):
+    """Block tables for contexts ``ctx``: distinct live pages from block
+    1 on, rows padded with block 0 (the cache's convention)."""
+    tables = np.zeros((len(ctx), max_blocks), np.int32)
     nxt = 1
     for i, n in enumerate(ctx):
         used = -(-int(n) // BLOCK_SIZE)
@@ -323,34 +332,121 @@ def check_kernels(dev, cfg):
         nxt += used
     if nxt > NUM_BLOCKS:
         raise SmokeError("paged check needs %d blocks" % nxt)
-    bt = torch.from_numpy(tables).to(dev)
+    return tables
+
+
+def check_paged_decode(dev, cfg, randn):
+    """Row 4 against its plain version: the lane's 8 sequences in fp32 and
+    with bf16 pools and inputs, one sequence alone (B 1), a context of 1;
+    two calls give equal bits; the kernel and the first design (v1) timed
+    in turns over all layers' pools, as a decode step reads them.  Both
+    versions convert bf16 to fp32 and do fp32 math, so every case is held
+    to the fp32 tolerance.  Returns the kernel's JSON row."""
+    import torch
+
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops.fused import attention_kernels as ak
+
+    layers, heads = cfg["num_layers"], cfg["num_heads"]
+    d = cfg["num_embed"] // heads
+    max_blocks = -(-cfg["seq_len"] // BLOCK_SIZE)
+    ctx = np.array([p + n for p, n in zip(PROMPTS, NEW_TOKENS)], np.int32)
+    bsz = len(ctx)
+    k_pages = randn(layers, NUM_BLOCKS, BLOCK_SIZE, heads, d)
+    v_pages = randn(layers, NUM_BLOCKS, BLOCK_SIZE, heads, d)
+    bt = torch.from_numpy(_paged_tables(ctx, max_blocks)).to(dev)
     cl = torch.from_numpy(ctx).to(dev)
     qd, ks, vs = (randn(bsz, heads, d) for _ in range(3))
-    err = max_err(
-        ak.fused_paged_decode_attention(qd, ks, vs, k_pages[0], v_pages[0],
-                                        bt, cl),
-        att.paged_decode_attention_plain(qd, ks, vs, k_pages[0], v_pages[0],
-                                         bt, cl), TOL, "paged_decode")
-    ntok = int(ctx.sum())
-    blocks_read = int(sum(-(-int(n) // BLOCK_SIZE) for n in ctx))
-    nbytes = ((ntok - bsz) * heads * d * 4 * 2 + 4 * bsz * heads * d * 4
-              + blocks_read * 4 + bsz * 4)
-    nb, by = bound(nbytes, 4 * d * heads * ntok)
-    rows.append({
+    scale = 1.0 / d ** 0.5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def kernel(args):
+        return ak.fused_paged_decode_attention(*args)
+
+    def plain(args):
+        return att.paged_decode_attention_plain(*args)
+
+    def v1(args, out):
+        q, k_s, v_s, kp, vp, tab, cls = args
+        ak.PAGED_DECODE_V1.launch(
+            dev, q.data_ptr(), k_s.data_ptr(), v_s.data_ptr(), kp.data_ptr(),
+            vp.data_ptr(), tab.data_ptr(), cls.data_ptr(), out.data_ptr(),
+            tab.shape[0], heads, d, BLOCK_SIZE, tab.shape[1], scale)
+        return out
+
+    lane = (qd, ks, vs, k_pages[0], v_pages[0], bt, cl)
+    lane16 = tuple(t.to(torch.bfloat16) for t in lane[:5]) + (bt, cl)
+    err = max_err(kernel(lane), plain(lane), TOL, "paged_decode")
+    max_err(v1(lane, torch.empty_like(qd)), plain(lane), TOL, "paged v1")
+    err = max(err, max_err(kernel(lane16), plain(lane16), TOL,
+                           "paged bf16"))
+    one = tuple(t[7:] for t in lane[:3]) + lane[3:5] + (bt[7:], cl[7:])
+    max_err(kernel(one), plain(one), TOL, "paged B=1")
+    cases = [("ctx=1", np.array([1, 300], np.int32)),
+             ("ctx=17,16", np.array([17, 16], np.int32))]
+    for tag, c_ in cases:
+        small = tuple(t[:2] for t in lane[:3]) + lane[3:5] + (
+            torch.from_numpy(_paged_tables(c_, max_blocks)).to(dev),
+            torch.from_numpy(c_).to(dev))
+        err = max(err, max_err(kernel(small), plain(small), TOL,
+                               "paged " + tag))
+    for args, tag in ((lane, "fp32 B=8"), (lane16, "bf16 B=8"),
+                      (one, "fp32 B=1")):
+        if not torch.equal(kernel(args), kernel(args)):
+            raise SmokeError("paged decode (%s): two calls on the same "
+                             "inputs differ" % tag)
+    print("  paged decode: two calls on the same inputs give equal bits "
+          "(fp32 and bf16 at B=8, fp32 at B=1); splits: %d at B=8, %d at "
+          "B=1 (%d SMs)" % (ak.decode_splits(bsz, heads, max_blocks,
+                                             BLOCK_SIZE, sms),
+                            ak.decode_splits(1, heads, max_blocks,
+                                             BLOCK_SIZE, sms), sms))
+
+    def layer(args, i):
+        return args[:3] + (k_pages[i % layers], v_pages[i % layers]) \
+            + args[5:]
+
+    k16, v16 = k_pages.to(torch.bfloat16), v_pages.to(torch.bfloat16)
+
+    def layer16(i):
+        return lane16[:3] + (k16[i % layers], v16[i % layers]) + lane16[5:]
+
+    out = torch.empty_like(qd)
+    old_ms, new_ms = in_turns(lambda i: v1(layer(lane, i), out),
+                              lambda i: kernel(layer(lane, i)), 120)
+    old1, new1 = in_turns(lambda i: v1(layer(one, i), out[:1]),
+                          lambda i: kernel(layer(one, i)), 120)
+    bf16_ms = cuda_ms(lambda i: kernel(layer16(i)), 120)
+
+    def bytes_of(c_, elem):
+        ntok = int(c_.sum())
+        pages = int(sum(-(-int(n) // BLOCK_SIZE) for n in c_))
+        # K and V rows of the pools (the current token's from k_step,
+        # v_step), q, the fp32 output, the live table entries, the lengths
+        return ((ntok - len(c_)) * heads * d * elem * 2
+                + 3 * len(c_) * heads * d * elem + len(c_) * heads * d * 4
+                + pages * 4 + len(c_) * 4), 4 * d * heads * ntok
+
+    nb, by = bound(*bytes_of(ctx, 4))
+    nb16, _ = bound(*bytes_of(ctx, 2))
+    nb1, _ = bound(*bytes_of(ctx[7:], 4))
+    print("  [paged_decode, lane shape B=%d ctx %d-%d] kernel %.4f ms, v1 "
+          "%.4f ms (in turns, %.2fx); bf16 pools %.4f ms; bounds fp32 %.4f "
+          "ms, bf16 %.4f ms" % (bsz, ctx.min(), ctx.max(), new_ms, old_ms,
+                                old_ms / new_ms, bf16_ms, nb, nb16))
+    print("  [paged_decode, B=1 ctx %d] kernel %.4f ms, v1 %.4f ms (in "
+          "turns, %.2fx); bound %.4f ms" % (ctx[7], new1, old1, old1 / new1,
+                                            nb1))
+    row = {
         "name": "paged_decode", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/attention_kernels.cu",
         "replaces": "mxnet_tpu/ops/fused/attention_kernels.py:117",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda i: ak.fused_paged_decode_attention(
-            qd, ks, vs, k_pages[i % layers], v_pages[i % layers], bt, cl),
-            120),
-        "plain_ms": cuda_ms(lambda i: att.paged_decode_attention_plain(
-            qd, ks, vs, k_pages[i % layers], v_pages[i % layers], bt, cl),
-            12),
+        "max_abs_err": err, "ms": new_ms,
+        "plain_ms": cuda_ms(lambda i: plain(layer(lane, i)), 12),
         "bound_ms": nb, "bound_by": by,
-        "library_ms": None})   # no one torch call reads through a table
-    del k_pages, v_pages
-    return rows
+        "library_ms": None}   # no one torch call reads through a table
+    del k_pages, v_pages, k16, v16
+    return row
 
 
 def events_ms(fn, iters, warmup=1):
@@ -576,41 +672,7 @@ def check_training_kernels(dev, cfg):
         "library_ms": lib_bwd})
     del q, k, v, do, o, lse, dq, dk, dv, delta, q_, k_, v_, lib_out
 
-    # the LayerNorm op (row 5), forward and gradient
-    x, g, bt, dy = randn(b, t, c), randn(c), randn(c), randn(b, t, c)
-    y, mean, rstd = nk.fused_layer_norm_op(x, g, bt)
-    y_p, mean_p, rstd_p = nk.layer_norm_op_plain(x, g, bt)
-    err = max(max_err(y, y_p, TOL, "layer_norm_op"),
-              max_err(mean, mean_p, TOL, "ln op mean"),
-              max_err(rstd, rstd_p, TOL, "ln op rstd"))
-    xs = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
-          bt.clone().requires_grad_(True)]
-    got = torch.autograd.grad(nk.layer_norm_op(*xs), xs, dy)
-    want = torch.autograd.grad(nk.layer_norm_op_plain(*xs)[0], xs, dy)
-    for name, g_, w_ in zip(("dx", "dgamma", "dbeta"), got, want):
-        err = max(err, max_err(g_, w_, GRAD_TOL, "ln op " + name))
-    nb, by = bound((2 * x.numel() + 2 * c + 2 * b * t) * 4, 8 * x.numel())
-    rows.append({
-        "name": "layer_norm_op", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/norm_kernels.cu",
-        "replaces": "mxnet_tpu/ops/fused/norm_kernels.py:54",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda i: nk.fused_layer_norm_op(x, g, bt), 50),
-        "plain_ms": cuda_ms(lambda i: nk.layer_norm_op_plain(x, g, bt), 10),
-        "bound_ms": nb, "bound_by": by,
-        "library_ms": cuda_ms(
-            lambda i: F.layer_norm(x, (c,), g, bt, eps=1e-5), 50)})
-    print("  [layer_norm_op backward, plain PyTorch from the row stats] "
-          "%.4f ms" % events_ms(lambda: nk.layer_norm_op_backward(
-              dy, x, g, mean, rstd), 10))
-    xl = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
-          bt.clone().requires_grad_(True)]
-    print("  [forward + backward] layer_norm_op %.4f ms, F.layer_norm %.4f ms"
-          % (events_ms(lambda: torch.autograd.grad(
-              nk.layer_norm_op(*xs), xs, dy), 10),
-             events_ms(lambda: torch.autograd.grad(F.layer_norm(
-                 xl[0], (c,), xl[1], xl[2], eps=1e-5), xl, dy), 10)))
-    del x, dy, y, y_p, xs, got, want
+    rows.append(check_layer_norm_op(dev, (b, t, c), randn))
 
     # the momentum step (row 8): per-op on one tensor, then the
     # multi-tensor entry over the bench model's parameter list
@@ -677,6 +739,117 @@ def check_training_kernels(dev, cfg):
           % (4 * c, c, cuda_ms(lambda i: ok_.fused_sgd_mom_update(
               attrs, w1, g1, m1), 50)))
     return rows
+
+
+# bf16 and fp16 outputs against the plain version's: both round one fp32
+# value to the dtype, which may land an ulp apart (the JAX package's parity
+# classes, ops/fused/parity.py).
+LOW_TOL = {"bfloat16": 2e-2, "float16": 2e-3}
+
+
+def check_layer_norm_op(dev, shape, randn):
+    """Row 5 against its plain version at the LM step's ``shape`` in fp32,
+    bf16 and fp16 (y, mean and rstd) and at a ragged C; its fp32 gradient
+    through the autograd op; the kernel and the first design (v1) timed in
+    turns, and ``F.layer_norm`` as the library call.  Returns the kernel's
+    JSON row."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.fused import norm_kernels as nk
+
+    c = shape[-1]
+    rows = int(np.prod(shape[:-1]))
+    x, g, bt, dy = randn(*shape), randn(c), randn(c), randn(*shape)
+    y, mean, rstd = nk.fused_layer_norm_op(x, g, bt)
+    y_p, mean_p, rstd_p = nk.layer_norm_op_plain(x, g, bt)
+    err = max(max_err(y, y_p, TOL, "layer_norm_op"),
+              max_err(mean, mean_p, TOL, "ln op mean"),
+              max_err(rstd, rstd_p, TOL, "ln op rstd"))
+    low = {}
+    for name, tol in LOW_TOL.items():
+        xlow = x.to(getattr(torch, name))
+        got, want = nk.fused_layer_norm_op(xlow, g, bt), \
+            nk.layer_norm_op_plain(xlow, g, bt)
+        if got[0].dtype != xlow.dtype:
+            raise SmokeError("layer_norm_op %s: y is %s" % (name,
+                                                            got[0].dtype))
+        max_err(got[0].float(), want[0].float(), tol, "ln op " + name)
+        max_err(got[1], want[1], TOL, "ln op %s mean" % name)
+        max_err(got[2], want[2], TOL, "ln op %s rstd" % name)
+        low[name] = xlow
+    for dt, tol in ((torch.float32, TOL), (torch.bfloat16, LOW_TOL[
+            "bfloat16"])):
+        xr = randn(3, 7, 33).to(dt)
+        gr, br = randn(33), randn(33)
+        got, want = nk.fused_layer_norm_op(xr, gr, br), \
+            nk.layer_norm_op_plain(xr, gr, br)
+        max_err(got[0].float(), want[0].float(), tol,
+                "ln op C=33 %s" % str(dt)[6:])
+        max_err(got[2], want[2], TOL, "ln op C=33 %s rstd" % str(dt)[6:])
+    xs = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
+          bt.clone().requires_grad_(True)]
+    got = torch.autograd.grad(nk.layer_norm_op(*xs), xs, dy)
+    want = torch.autograd.grad(nk.layer_norm_op_plain(*xs)[0], xs, dy)
+    for name, g_, w_ in zip(("dx", "dgamma", "dbeta"), got, want):
+        err = max(err, max_err(g_, w_, GRAD_TOL, "ln op " + name))
+    del got, want
+
+    y1 = torch.empty_like(x)
+    m1, r1 = torch.empty_like(mean), torch.empty_like(rstd)
+
+    def v1(i):
+        nk.LAYER_NORM_OP_V1.launch(dev, x.data_ptr(), g.data_ptr(),
+                                   bt.data_ptr(), y1.data_ptr(),
+                                   m1.data_ptr(), r1.data_ptr(), rows, c,
+                                   1e-5)
+
+    v1(0)
+    max_err(y1, y_p, TOL, "ln op v1")
+    old_ms, new_ms = in_turns(v1, lambda i: nk.fused_layer_norm_op(
+        x, g, bt), 50)
+    lib_ms = cuda_ms(lambda i: F.layer_norm(x, (c,), g, bt, eps=1e-5), 50)
+    # one more turn: the library call, then the kernel
+    new2 = cuda_ms(lambda i: nk.fused_layer_norm_op(x, g, bt), 50)
+
+    def bytes_of(elem):
+        return (2 * x.numel() * elem + 2 * c * 4 + 2 * rows * 4,
+                8 * x.numel())
+
+    nb, by = bound(*bytes_of(4))
+    print("  [layer_norm_op, x %s fp32] kernel %.4f ms (%.4f after "
+          "F.layer_norm), v1 %.4f ms (in turns, %.2fx), F.layer_norm %.4f "
+          "ms; bound %.4f ms (%.0f%% of it)"
+          % (list(shape), new_ms, new2, old_ms, old_ms / new_ms, lib_ms, nb,
+             100 * nb / new_ms))
+    nb16, _ = bound(*bytes_of(2))
+    for name, xlow in low.items():
+        gl, bl = g.to(xlow.dtype), bt.to(xlow.dtype)
+        k_ms = cuda_ms(lambda i: nk.fused_layer_norm_op(xlow, g, bt), 50)
+        l_ms = cuda_ms(lambda i: F.layer_norm(xlow, (c,), gl, bl,
+                                              eps=1e-5), 50)
+        print("  [layer_norm_op, x %s %s] kernel %.4f ms, F.layer_norm "
+              "(%s gamma, beta) %.4f ms; bound %.4f ms (%.0f%% of it)"
+              % (list(shape), name, k_ms, name, l_ms, nb16,
+                 100 * nb16 / k_ms))
+    row = {
+        "name": "layer_norm_op", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/norm_kernels.cu",
+        "replaces": "mxnet_tpu/ops/fused/norm_kernels.py:54",
+        "max_abs_err": err, "ms": new_ms,
+        "plain_ms": cuda_ms(lambda i: nk.layer_norm_op_plain(x, g, bt), 10),
+        "bound_ms": nb, "bound_by": by, "library_ms": lib_ms}
+    print("  [layer_norm_op backward, plain PyTorch from the row stats] "
+          "%.4f ms" % events_ms(lambda: nk.layer_norm_op_backward(
+              dy, x, g, mean, rstd), 10))
+    xl = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
+          bt.clone().requires_grad_(True)]
+    print("  [forward + backward] layer_norm_op %.4f ms, F.layer_norm %.4f ms"
+          % (events_ms(lambda: torch.autograd.grad(
+              nk.layer_norm_op(*xs), xs, dy), 10),
+             events_ms(lambda: torch.autograd.grad(F.layer_norm(
+                 xl[0], (c,), xl[1], xl[2], eps=1e-5), xl, dy), 10)))
+    return row
 
 
 # The 1x1-conv dgrads of one bench ResNet-50 step (batch 128, 224 px, NHWC):
@@ -1617,6 +1790,40 @@ def run_probe(card):
 # -------------------------------------------------------------------- main
 
 
+_TYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+
+
+def kernel_entry(mangled):
+    """``name<template args>`` of a kernel from its mangled name (ptxas's
+    "Compiling entry function" line), or None.  A mangled identifier is its
+    length, then its name; the anonymous namespace's hash before it may end
+    in digits too, so the length must match."""
+    for run in re.finditer(r"\d+", mangled):
+        digits = run.group()
+        names = [mangled[run.end():run.end() + int(digits[i:])]
+                 for i in range(len(digits))]
+        name = next((n for n in names
+                     if re.fullmatch(r"[a-z][a-z0-9_]*_kernel", n)), None)
+        if name is None:
+            continue
+        args = re.match(r"I((?:Li\d+E)+)E|I(13__nv_bfloat16|f)Lb(\d)E|"
+                        r"I(f|13__nv_bfloat16|6__half)((?:Li\d+E)*)E|E",
+                        mangled[run.end() + len(name):])
+        if not args:
+            continue
+        if args.group(2):
+            targs = "%s, %s" % (_TYPES[args.group(2)], "vector"
+                                if args.group(3) == "1" else "scalar")
+        else:
+            targs = ", ".join(
+                ([_TYPES[args.group(4)]] if args.group(4) else [])
+                + re.findall(r"\d+", args.group(1) or args.group(5) or ""))
+        return name + ("<%s>" % targs if targs else "")
+    return None
+
+
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
 
@@ -1643,17 +1850,9 @@ def main():
     for name in _build._sources():
         for line in _build.build_log(name).splitlines():
             mangled = re.search(r"Compiling entry function '(\w+)'", line)
-            entry = mangled and re.search(
-                r"\d([a-z][a-z0-9_]*_kernel)(?:I((?:Li\d+E)+)|"
-                r"I(13__nv_bfloat16|f)Lb(\d)E|E)", mangled.group(1))
+            entry = mangled and kernel_entry(mangled.group(1))
             if entry:
-                ints = entry.group(2) and re.findall(r"\d+", entry.group(2))
-                targs = (ints and ", ".join(ints)) or (
-                    entry.group(3) and "%s, %s" % (
-                    "bf16" if entry.group(3) != "f" else "fp32",
-                    "vector" if entry.group(4) == "1" else "scalar"))
-                print("  %s: %s%s" % (name, entry.group(1),
-                                      "<%s>" % targs if targs else ""))
+                print("  %s: %s" % (name, entry))
             elif "registers" in line or "spill" in line:
                 print("  %s:   %s" % (name, line.strip()))
             elif "C7520" in line:   # ptxas serialized a kernel's wgmma
@@ -1708,6 +1907,12 @@ def main():
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts)
+    earlier = {n: sum(c[n] for c in path_counts) for n in EARLIER_KERNELS}
+    print("  the earlier kernels kept for timing in turns, launches on the "
+          "main paths: %s" % json.dumps(earlier))
+    if any(earlier.values()):
+        raise SmokeError("an earlier kernel launched on a main path: %s"
+                         % earlier)
     missing = [r["name"] for r in rows if not r["launches"]]
     if missing:
         raise SmokeError("kernels never launched on a main path: %s"

@@ -1,5 +1,6 @@
 // Flash attention (forward with its log-sum-exp, and the backward's dK/dV and
-// dQ passes) and block-table paged decode attention, fp32, for sm_90a.
+// dQ passes), fp32, and block-table paged decode attention (fp32 or bf16 K/V,
+// fp32 math and output), for sm_90a.
 //
 // mxtpu_flash_prefill replaces the Pallas flash forward that the JAX
 // package's prefill reaches (mxnet_tpu/ops/attention.py _flash_fwd_pallas /
@@ -28,10 +29,12 @@
 // each K/V tile); K/V tiles of 64 keys (32 at D = 128) land by cp.async
 // while the previous tile is multiplied, and are split once into TF32 big
 // and small tiles in 128-byte swizzled shared memory, V transposed, as
-// wgmma wants both tf32 operands K-major.  S = Q K^T and O += P V run as
-// wgmma m64nNk8 tf32, three products each, with A in registers (Q's split
-// fragments, loaded once; P straight from S's accumulators).  The online
-// softmax (running max, sum, rescale) never leaves registers; under causal
+// wgmma wants both tf32 operands K-major.  S = Q K^T and each tile's P V run
+// as wgmma m64nNk8 tf32, three products each, with A in registers (Q's split
+// fragments, loaded once; P straight from S's accumulators); at D <= 64
+// P V goes to fresh accumulators that are added to O in registers, so O's
+// error stays flat in T.  The online softmax (running max, sum, rescale) never leaves
+// registers; under causal
 // the key tiles above the diagonal are never loaded and only the diagonal
 // tile is masked; the bottom (longest) row blocks start first.  No product
 // is single-pass TF32.
@@ -51,18 +54,33 @@
 // Paged decode.  One query per sequence against K/V read through the
 // block table, the current token's K/V taken from k_step/v_step at
 // position context_len - 1.  What bounds it: it reads each live K and V
-// row once (B = 8 sequences of about 576 tokens, 16 heads, D = 64 read
-// 38 MB per layer, about 11 us at 3.35 TB/s) and does 4 flops per element
-// read, far below the card's ratio, so it is bound by bytes.  Design: one
-// block of 256 threads per (b, h).  Each block reads its own block ids from
-// the table (the TPU version's scalar prefetch), visits only the
-// ceil(context_len / block_size) live pages, and never builds the
-// [B, max_blocks * block_size, H, D] gather the Pallas kernel stages: one
-// warp per key computes a score with a coalesced 256-byte read of the key
-// row, the scores of the sequence sit in shared memory for an exact
-// two-pass softmax, and the P.V pass reads each value row once, coalesced.
+// row once (the lane's 8 sequences of 96-576 tokens, 16 heads, D = 64 read
+// 20 MB per layer in fp32, about 6 us at 3.35 TB/s) and does 4 flops per
+// element read, far below the card's ratio, so it is bound by bytes; at
+// this size a launch's fixed costs weigh too.  Design (paged_decode_kernel,
+// flash-decoding): each (b, h) splits its live pages, ceil(context_len /
+// block_size) of them, into `splits` contiguous ranges (the host picks
+// splits from B, H and the table's length, so the grid covers the card even
+// at B = 1), one block of 128 threads a range; a range past the live pages
+// only takes part in the count below.  A block stages its block ids in
+// shared memory (the TPU version's scalar prefetch) and never reads table
+// entries past the live pages nor builds the [B, max_blocks * block_size,
+// H, D] gather the Pallas kernel stages.  Within a block a key row belongs
+// to a group of D * sizeof(T) / 16 lanes, one 16-byte load a lane (16 lanes
+// for D = 64 fp32, 8 for bf16), and each group loads 8 keys' K and V rows
+// before any arithmetic, so a warp keeps 4-16 KB in flight; the scores
+// reduce by shuffles within the group and an online softmax (running max,
+// sum and output in fp32 registers) consumes them.  The block merges its
+// groups in group order through shared memory and writes an unnormalised
+// partial (max, sum, output); the last block of a (b, h) to finish, found
+// by an atomic counter that it resets, merges the partials in split order,
+// so two calls give equal bits.  One launch per layer.
+// paged_decode_v1_kernel is the port's first design (one block per (b, h)
+// walking the whole context, one warp per key), which mxtpu_paged_decode_v1
+// keeps, fp32 only, for timing in turns on the card.
 
 #include "common.h"
+#include "vec16.h"
 
 namespace {
 
@@ -213,9 +231,10 @@ struct Fwd {
 // lands raw by cp.async, is split once into TF32 big and small
 // tiles in 128-byte swizzled shared memory (K as it is, V transposed, both
 // K-major as wgmma takes tf32), and the next tile's load flies while this
-// one is multiplied.  S = Q K^T and O += P V run as wgmma m64nNk8 tf32 with
-// A in registers (Q's split fragments, loaded once; P from S's
-// accumulators) and B from the split tiles, three products each.  The
+// one is multiplied.  S = Q K^T and the tile's P V run as wgmma m64nNk8
+// tf32 with A in registers (Q's split fragments, loaded once; P from S's
+// accumulators) and B from the split tiles, three products each; at D <= 64
+// P V lands in fresh accumulators, and O = alpha O + P V in registers.  The
 // m64nN accumulator holds, in key block j, (row g, keys 8j+2c, 8j+2c+1)
 // and (row g+8, the same), with g = lane / 4, c = lane % 4; the tf32 A
 // fragment wants (row g | g+8, k c | c+4).  So V's keys are stored
@@ -233,6 +252,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kKSteps = D / 8;        // k-steps of S = Q K^T
   constexpr int kSB = BK / 8;           // 8-key blocks of S (k-steps of P V)
   constexpr int kChunks = D / F::kNO;   // P V instructions a k-step
+  constexpr bool kFreshPV = D <= 64;    // each tile's P V in fresh accumulators
   extern __shared__ unsigned char fwd_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<unsigned long long>(fwd_raw) + 1023) & ~1023ull);
@@ -378,18 +398,24 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l1 = l1 * alpha1 + sum1;
     m0 = mn0;
     m1 = mn1;
+    if constexpr (!kFreshPV) {
 #pragma unroll
-    for (int n = 0; n < kChunks; ++n)
+      for (int n = 0; n < kChunks; ++n)
 #pragma unroll
-      for (int i = 0; i < F::kNO / 8; ++i) {
-        acc[n][4 * i] *= alpha0;
-        acc[n][4 * i + 1] *= alpha0;
-        acc[n][4 * i + 2] *= alpha1;
-        acc[n][4 * i + 3] *= alpha1;
-      }
+        for (int i = 0; i < F::kNO / 8; ++i) {
+          acc[n][4 * i] *= alpha0;
+          acc[n][4 * i + 1] *= alpha0;
+          acc[n][4 * i + 2] *= alpha1;
+          acc[n][4 * i + 3] *= alpha1;
+        }
+    }
 
-    // O += P V: key block j of S is the A fragment of k-step j (split
-    // before the fence: wgmma reads registers written before it)
+    // O = alpha O + P V.  At D <= 64 the tile's products go to fresh
+    // accumulators, added to O in registers: one wgmma accumulator chained
+    // over every key tile lets its error grow with T.  (At D = 128 the fresh
+    // accumulators would take 64 more registers a thread, and the chain
+    // stays.)  Key block j of S is the A fragment of k-step j (split and
+    // zeroed before the fence: wgmma reads registers written before it)
     unsigned pb[kSB][4], ps[kSB][4];
 #pragma unroll
     for (int j = 0; j < kSB; ++j) {
@@ -398,16 +424,35 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       split_tf32(s[4 * j + 1], pb[j][2], ps[j][2]);
       split_tf32(s[4 * j + 3], pb[j][3], ps[j][3]);
     }
+    float pv[kFreshPV ? kChunks : 1][F::kNO / 2];
+    if constexpr (kFreshPV) {
+#pragma unroll
+      for (int n = 0; n < kChunks; ++n)
+#pragma unroll
+        for (int i = 0; i < F::kNO / 2; ++i) pv[n][i] = 0.f;
+    }
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kSB; ++j)
 #pragma unroll
       for (int n = 0; n < kChunks; ++n) {
         const int off = (j / 4) * D * 128 + n * F::kNO * 128 + (j % 4) * 32;
-        wgmma_3xtf32<F::kNO>(acc[n], pb[j], ps[j], tile_desc(vb + off),
-                             tile_desc(vs + off));
+        float* d = acc[n];
+        if constexpr (kFreshPV) d = pv[n];
+        wgmma_3xtf32<F::kNO>(d, pb[j], ps[j], tile_desc(vb + off), tile_desc(vs + off));
       }
     wgmma_commit_wait();
+    if constexpr (kFreshPV) {
+#pragma unroll
+      for (int n = 0; n < kChunks; ++n)
+#pragma unroll
+        for (int i = 0; i < F::kNO / 8; ++i) {
+          acc[n][4 * i] = acc[n][4 * i] * alpha0 + pv[n][4 * i];
+          acc[n][4 * i + 1] = acc[n][4 * i + 1] * alpha0 + pv[n][4 * i + 1];
+          acc[n][4 * i + 2] = acc[n][4 * i + 2] * alpha1 + pv[n][4 * i + 2];
+          acc[n][4 * i + 3] = acc[n][4 * i + 3] * alpha1 + pv[n][4 * i + 3];
+        }
+    }
   }
 
   l0 += __shfl_xor_sync(mxtpu::kFullMask, l0, 1);
@@ -1301,9 +1346,12 @@ int dispatch_bwd(const float* q, const float* k, const float* v, const float* do
 
 constexpr int kDecodeThreads = 256;
 
+// The first design: one block of 256 threads per (b, h) walking the whole
+// context; one warp per key scores it into shared memory, then an exact
+// two-pass softmax and a P.V pass.  fp32.
 template <int D>
 __global__ void __launch_bounds__(kDecodeThreads)
-paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_step,
+paged_decode_v1_kernel(const float* __restrict__ q, const float* __restrict__ k_step,
                     const float* __restrict__ v_step, const float* __restrict__ k_pages,
                     const float* __restrict__ v_pages, const int* __restrict__ block_tables,
                     const int* __restrict__ context_lens, float* __restrict__ out, int heads,
@@ -1377,6 +1425,183 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_ste
   }
 }
 
+
+constexpr int kSplitThreads = 128;
+constexpr int kSplitUnroll = 8;   // keys a lane group loads before its arithmetic
+
+// A key row of D elements of T in 16-byte pieces: kLanes lanes a key, kGroups
+// keys in flight per unrolled step of the block.
+template <typename T, int D>
+struct DecodeShape {
+  static constexpr int kElems = mxtpu::Vec16<T>::kN;
+  static constexpr int kLanes = D / kElems;
+  static constexpr int kGroups = kSplitThreads / kLanes;
+  static_assert(kLanes >= 1 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0, "lanes a key");
+};
+
+// partial: [B * H, splits, D + 2] fp32 scratch, (max, sum, output[D]) of each
+// split, unused when splits == 1; counters: [B * H] zeros, left zero.
+template <typename T, int D>
+__global__ void __launch_bounds__(kSplitThreads)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_step,
+                    const T* __restrict__ v_step, const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages, const int* __restrict__ block_tables,
+                    const int* __restrict__ context_lens, float* __restrict__ out,
+                    float* __restrict__ partial, unsigned* __restrict__ counters, int heads,
+                    int blk, int max_blocks, float scale) {
+  using V = mxtpu::Vec16<T>;
+  using S = DecodeShape<T, D>;
+  constexpr int kE = S::kElems;
+  constexpr int kL = S::kLanes;
+  extern __shared__ int pages[];   // this split's block ids
+  __shared__ float gm[S::kGroups], gl[S::kGroups];
+  __shared__ float gacc[S::kGroups][D];
+  __shared__ bool last;
+
+  const int split = blockIdx.x;
+  const int splits = gridDim.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int grp = tid / kL;
+  const int sub = tid % kL;
+  // context_len counts the current token; positions >= it are never read
+  const int ctx = min(max(context_lens[b], 1), max_blocks * blk);
+  const int live = (ctx + blk - 1) / blk;
+  const int per = (live + splits - 1) / splits;
+  const int p0 = split * per;
+  const int p1 = min(p0 + per, live);
+  const long long bh = static_cast<long long>(b) * heads + h;
+  const long long row = bh * D;   // [B, H, D] tensors
+
+  if (p0 < p1) {   // uniform over the block
+    for (int i = tid; i < p1 - p0; i += kSplitThreads)
+      pages[i] = block_tables[static_cast<long long>(b) * max_blocks + p0 + i];
+    float qv[kE];
+    V::unpack(mxtpu::load16(q + row + sub * kE), qv);
+    __syncthreads();
+    const long long page_stride = static_cast<long long>(blk) * heads * D;
+    const int k0 = p0 * blk;
+    const int k1 = min(p1 * blk, ctx);
+    float m = mxtpu::kNegInf, l = 0.f;
+    float acc[kE];
+#pragma unroll
+    for (int i = 0; i < kE; ++i) acc[i] = 0.f;
+    for (int base = k0; base < k1; base += S::kGroups * kSplitUnroll) {
+      uint4 kr[kSplitUnroll], vr[kSplitUnroll];
+#pragma unroll
+      for (int u = 0; u < kSplitUnroll; ++u) {
+        const int key = base + u * S::kGroups + grp;
+        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (key < k1) {
+          long long off;
+          const T *kp, *vp;
+          if (key == ctx - 1) {
+            off = row;
+            kp = k_step;
+            vp = v_step;
+          } else {
+            off = pages[key / blk - p0] * page_stride +
+                  (static_cast<long long>(key % blk) * heads + h) * D;
+            kp = k_pages;
+            vp = v_pages;
+          }
+          kr[u] = mxtpu::load16(kp + off + sub * kE);
+          vr[u] = mxtpu::load16(vp + off + sub * kE);
+        }
+      }
+      float sc[kSplitUnroll];
+#pragma unroll
+      for (int u = 0; u < kSplitUnroll; ++u) {
+        float kf[kE];
+        V::unpack(kr[u], kf);
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < kE; ++i) dot += qv[i] * kf[i];
+        sc[u] = dot;
+      }
+#pragma unroll
+      for (int o = kL / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int u = 0; u < kSplitUnroll; ++u)
+          sc[u] += __shfl_xor_sync(mxtpu::kFullMask, sc[u], o);
+      }
+      float mx = m;
+#pragma unroll
+      for (int u = 0; u < kSplitUnroll; ++u) {
+        const bool valid = base + u * S::kGroups + grp < k1;
+        sc[u] = valid ? sc[u] * scale : mxtpu::kNegInf;
+        mx = fmaxf(mx, sc[u]);
+      }
+      const float corr = expf(m - mx);
+      l *= corr;
+#pragma unroll
+      for (int i = 0; i < kE; ++i) acc[i] *= corr;
+#pragma unroll
+      for (int u = 0; u < kSplitUnroll; ++u) {
+        const bool valid = base + u * S::kGroups + grp < k1;
+        const float p = valid ? expf(sc[u] - mx) : 0.f;
+        l += p;
+        float vf[kE];
+        V::unpack(vr[u], vf);
+#pragma unroll
+        for (int i = 0; i < kE; ++i) acc[i] += p * vf[i];
+      }
+      m = mx;
+    }
+    if (sub == 0) {
+      gm[grp] = m;
+      gl[grp] = l;
+    }
+#pragma unroll
+    for (int i = 0; i < kE; ++i) gacc[grp][sub * kE + i] = acc[i];
+    __syncthreads();
+    // merge the groups in group order (groups that saw no key: m = -1e30, l = 0)
+    if (tid < D) {
+      float mb = mxtpu::kNegInf;
+      for (int g = 0; g < S::kGroups; ++g) mb = fmaxf(mb, gm[g]);
+      float lb = 0.f, ob = 0.f;
+      for (int g = 0; g < S::kGroups; ++g) {
+        const float w = expf(gm[g] - mb);
+        lb += gl[g] * w;
+        ob += gacc[g][tid] * w;
+      }
+      if (splits == 1) {
+        out[row + tid] = ob / lb;
+      } else {
+        float* part = partial + (bh * splits + split) * (D + 2);
+        part[2 + tid] = ob;
+        if (tid == 0) {
+          part[0] = mb;
+          part[1] = lb;
+        }
+      }
+    }
+  }
+  if (splits == 1) return;
+  // the last block of this (b, h) to finish merges the partials
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + bh, 1u) == static_cast<unsigned>(splits - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int nlive = (live + per - 1) / per;   // splits that hold pages
+  const float* part = partial + bh * splits * (D + 2);
+  if (tid < D) {
+    float mt = mxtpu::kNegInf;
+    for (int sp = 0; sp < nlive; ++sp) mt = fmaxf(mt, __ldcg(part + sp * (D + 2)));
+    float lt = 0.f, ot = 0.f;
+    for (int sp = 0; sp < nlive; ++sp) {
+      const float w = expf(__ldcg(part + sp * (D + 2)) - mt);
+      lt += __ldcg(part + sp * (D + 2) + 1) * w;
+      ot += __ldcg(part + sp * (D + 2) + 2 + tid) * w;
+    }
+    out[row + tid] = ot / lt;
+  }
+  if (tid == 0) counters[bh] = 0u;
+}
+
 template <int D, int WG>
 cudaError_t launch_flash_wg(const float* q, const float* k, const float* v, float* o,
                             float* lse, int bh, int t_len, int tk_len, int causal, float scale,
@@ -1419,22 +1644,68 @@ cudaError_t launch_flash_simt(const float* q, const float* k, const float* v, fl
 }
 
 template <int D>
-cudaError_t launch_decode(const float* q, const float* k_step, const float* v_step,
-                          const float* k_pages, const float* v_pages, const int* block_tables,
-                          const int* context_lens, float* out, int bsz, int heads, int blk,
-                          int max_blocks, float scale, cudaStream_t stream) {
+cudaError_t launch_decode_v1(const float* q, const float* k_step, const float* v_step,
+                             const float* k_pages, const float* v_pages,
+                             const int* block_tables, const int* context_lens, float* out,
+                             int bsz, int heads, int blk, int max_blocks, float scale,
+                             cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(max_blocks) * blk * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<D>,
+    cudaError_t err = cudaFuncSetAttribute(paged_decode_v1_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   dim3 grid(heads, bsz);
-  paged_decode_kernel<D><<<grid, kDecodeThreads, smem, stream>>>(
+  paged_decode_v1_kernel<D><<<grid, kDecodeThreads, smem, stream>>>(
       q, k_step, v_step, k_pages, v_pages, block_tables, context_lens, out, heads, blk,
       max_blocks, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_decode(const void* q, const void* k_step, const void* v_step,
+                          const void* k_pages, const void* v_pages, const int* block_tables,
+                          const int* context_lens, float* out, float* partial,
+                          unsigned* counters, int bsz, int heads, int blk, int max_blocks,
+                          int splits, float scale, cudaStream_t stream) {
+  // a split holds at most ceil(max_blocks / splits) block ids
+  const size_t smem = static_cast<size_t>((max_blocks + splits - 1) / splits) * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(splits, heads, bsz);
+  paged_decode_kernel<T, D><<<grid, kSplitThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_step), static_cast<const T*>(v_step),
+      static_cast<const T*>(k_pages), static_cast<const T*>(v_pages), block_tables,
+      context_lens, out, partial, counters, heads, blk, max_blocks, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_decode(const void* q, const void* k_step, const void* v_step,
+                            const void* k_pages, const void* v_pages, const int* block_tables,
+                            const int* context_lens, float* out, float* partial,
+                            unsigned* counters, int bsz, int heads, int head_dim, int blk,
+                            int max_blocks, int splits, float scale, cudaStream_t s) {
+  switch (head_dim) {
+    case 32:
+      return launch_decode<T, 32>(q, k_step, v_step, k_pages, v_pages, block_tables,
+                                  context_lens, out, partial, counters, bsz, heads, blk,
+                                  max_blocks, splits, scale, s);
+    case 64:
+      return launch_decode<T, 64>(q, k_step, v_step, k_pages, v_pages, block_tables,
+                                  context_lens, out, partial, counters, bsz, heads, blk,
+                                  max_blocks, splits, scale, s);
+    case 128:
+      return launch_decode<T, 128>(q, k_step, v_step, k_pages, v_pages, block_tables,
+                                   context_lens, out, partial, counters, bsz, heads, blk,
+                                   max_blocks, splits, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1475,29 +1746,59 @@ MXTPU_API int mxtpu_flash_fwd_simt(const float* q, const float* k, const float* 
                                                 static_cast<cudaStream_t>(stream)));
 }
 
-// q, k_step, v_step, out: contiguous fp32 [B, H, D]; k_pages, v_pages:
-// contiguous fp32 [num_blocks, blk, H, D]; block_tables int32 [B, max_blocks];
-// context_lens int32 [B].  head_dim one of 32, 64, 128.
-MXTPU_API int mxtpu_paged_decode(const float* q, const float* k_step, const float* v_step,
-                                 const float* k_pages, const float* v_pages,
+// q, k_step, v_step: contiguous [B, H, D] and k_pages, v_pages: contiguous
+// [num_blocks, blk, H, D], all of one dtype (mxtpu::DtypeCode: fp32 or bf16),
+// 16-byte aligned; block_tables int32 [B, max_blocks]; context_lens int32 [B];
+// out: fp32 [B, H, D].  head_dim one of 32, 64, 128.  splits >= 1 ranges of
+// each sequence's live pages; when splits > 1, partial is fp32 scratch of
+// B * H * splits * (head_dim + 2) and counters B * H unsigned zeros, which the
+// kernel leaves zero (launches that share them must not overlap).
+MXTPU_API int mxtpu_paged_decode(const void* q, const void* k_step, const void* v_step,
+                                 const void* k_pages, const void* v_pages,
                                  const int* block_tables, const int* context_lens, float* out,
-                                 int bsz, int heads, int head_dim, int blk, int max_blocks,
+                                 float* partial, unsigned* counters, int bsz, int heads,
+                                 int head_dim, int blk, int max_blocks, int splits, int dtype,
                                  float scale, void* stream) {
+  if (bsz <= 0 || heads <= 0) return static_cast<int>(cudaGetLastError());
+  if (splits < 1 || (splits > 1 && (partial == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case mxtpu::kFloat32:
+      return static_cast<int>(dispatch_decode<float>(
+          q, k_step, v_step, k_pages, v_pages, block_tables, context_lens, out, partial,
+          counters, bsz, heads, head_dim, blk, max_blocks, splits, scale, s));
+    case mxtpu::kBFloat16:
+      return static_cast<int>(dispatch_decode<__nv_bfloat16>(
+          q, k_step, v_step, k_pages, v_pages, block_tables, context_lens, out, partial,
+          counters, bsz, heads, head_dim, blk, max_blocks, splits, scale, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The first design (paged_decode_v1_kernel), fp32: contiguous fp32 q,
+// k_step, v_step, out [B, H, D] and pages [num_blocks, blk, H, D]; for timing
+// it beside paged_decode_kernel.
+MXTPU_API int mxtpu_paged_decode_v1(const float* q, const float* k_step, const float* v_step,
+                                    const float* k_pages, const float* v_pages,
+                                    const int* block_tables, const int* context_lens,
+                                    float* out, int bsz, int heads, int head_dim, int blk,
+                                    int max_blocks, float scale, void* stream) {
   if (bsz <= 0 || heads <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
-      return static_cast<int>(launch_decode<32>(q, k_step, v_step, k_pages, v_pages,
-                                                block_tables, context_lens, out, bsz, heads,
-                                                blk, max_blocks, scale, s));
+      return static_cast<int>(launch_decode_v1<32>(q, k_step, v_step, k_pages, v_pages,
+                                                   block_tables, context_lens, out, bsz,
+                                                   heads, blk, max_blocks, scale, s));
     case 64:
-      return static_cast<int>(launch_decode<64>(q, k_step, v_step, k_pages, v_pages,
-                                                block_tables, context_lens, out, bsz, heads,
-                                                blk, max_blocks, scale, s));
+      return static_cast<int>(launch_decode_v1<64>(q, k_step, v_step, k_pages, v_pages,
+                                                   block_tables, context_lens, out, bsz,
+                                                   heads, blk, max_blocks, scale, s));
     case 128:
-      return static_cast<int>(launch_decode<128>(q, k_step, v_step, k_pages, v_pages,
-                                                 block_tables, context_lens, out, bsz, heads,
-                                                 blk, max_blocks, scale, s));
+      return static_cast<int>(launch_decode_v1<128>(q, k_step, v_step, k_pages, v_pages,
+                                                    block_tables, context_lens, out, bsz,
+                                                    heads, blk, max_blocks, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,8 +12,11 @@ every product on the tensor cores in 3xTF32 (each fp32 operand split into
 two TF32 parts, three products); at D = 128 the backward runs on the CUDA
 cores (:func:`bwd_kernels`).  They reorder the softmax sums (online
 softmax over key tiles; the backward sums its gradients tile by tile), so
-they agree with the plain versions to rounding, not bitwise; the paged
-decode kernel likewise sums in its own order.  ``chip_smoke.py`` prints
+they agree with the plain versions to rounding, not bitwise.  The paged
+decode kernel (fp32 or bf16 K/V, fp32 math and output) splits each
+sequence's live pages over :func:`decode_splits` blocks and merges their
+partial softmaxes in a fixed order, so it too sums in its own order, and
+two calls on the same inputs give the same bits.  ``chip_smoke.py`` prints
 the backward's errors against the plain version and, beside the plain
 version's own and SDPA's, against a float64 reference.
 """
@@ -30,9 +33,9 @@ from .._build import Kernel, device_kind, require
 
 __all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DKDV_SIMT", "FLASH_BWD_DQ",
            "FLASH_BWD_DQ_SIMT", "FLASH_FWD_SIMT", "FLASH_PREFILL",
-           "PAGED_DECODE", "bwd_kernels", "fused_flash_bwd",
-           "fused_flash_fwd", "fused_paged_decode_attention",
-           "fused_prefill_attention"]
+           "PAGED_DECODE", "PAGED_DECODE_V1", "bwd_kernels", "decode_splits",
+           "fused_flash_bwd", "fused_flash_fwd",
+           "fused_paged_decode_attention", "fused_prefill_attention"]
 
 _HEAD_DIMS = (32, 64, 128)
 _P = ctypes.c_void_p
@@ -65,7 +68,20 @@ FLASH_BWD_DQ_SIMT = Kernel(
     [_P] * 7 + [_I] * 6 + [_F])
 PAGED_DECODE = Kernel(
     "paged_decode", "attention_kernels", "mxtpu_paged_decode",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float])
+    [_P] * 10 + [_I] * 7 + [_F])
+# The first paged decode kernel (one block per sequence and head), fp32,
+# with PAGED_DECODE's arguments up to max_blocks and then the scale: a run
+# on the card times it beside PAGED_DECODE; no path of the package
+# launches it.
+PAGED_DECODE_V1 = Kernel(
+    "paged_decode_v1", "attention_kernels", "mxtpu_paged_decode_v1",
+    [_P] * 8 + [_I] * 5 + [_F])
+_DECODE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Blocks per SM the paged decode's grid aims at, and the fewest keys of a
+# full-length table a split may hold.
+_DECODE_BLOCKS_PER_SM = 4
+_DECODE_MIN_SPLIT_KEYS = 64
+_counters = {}
 
 
 def fused_prefill_attention(q, k, v, sm_scale=None):
@@ -159,6 +175,30 @@ def fused_flash_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None):
     return dq, dk, dv
 
 
+def decode_splits(bsz, heads, max_blocks, block_size, sms):
+    """How many blocks share each sequence's live pages in the paged decode
+    kernel, from shapes the host knows (the context lengths stay on the
+    card): enough that ``bsz * heads * splits`` blocks give each of ``sms``
+    SMs about :data:`_DECODE_BLOCKS_PER_SM`, but never so many that a split
+    of a full-length table (``max_blocks * block_size`` keys) holds fewer
+    than :data:`_DECODE_MIN_SPLIT_KEYS` keys, nor more splits than pages."""
+    want = -(-_DECODE_BLOCKS_PER_SM * sms // (bsz * heads))
+    cap = max(1, max_blocks * block_size // _DECODE_MIN_SPLIT_KEYS)
+    return max(1, min(want, cap, max_blocks))
+
+
+def _decode_counters(device, n):
+    """``n`` or more zeroed uint32 counters on ``device``, kept for the
+    process: the kernel leaves them zero.  A larger request allocates
+    anew and keeps the old buffer alive, since a captured CUDA graph may
+    still point at it."""
+    kept = _counters.setdefault(device, [])
+    if not kept or kept[-1].numel() < n:
+        kept.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return kept[-1]
+
+
 def fused_paged_decode_attention(q, k_step, v_step, k_pages, v_pages,
                                  block_tables, context_lens, sm_scale=None):
     """One decode step's attention through the block table, fp32
@@ -167,10 +207,13 @@ def fused_paged_decode_attention(q, k_step, v_step, k_pages, v_pages,
 
     CUDA tensors: the paged decode kernel reads each sequence's live pages
     in place (``ceil(context_len / block_size)`` of them; table entries
-    past those are never read).  ``block_tables`` and ``context_lens`` are
-    int32 on the same device; the caller keeps every block id below
-    ``num_blocks`` and every context length in ``[1, max_blocks *
-    block_size]`` (the kernel clamps the length, it cannot check ids).
+    past those are never read).  ``q``, ``k_step``, ``v_step`` and the
+    pools share one dtype, fp32 or bf16 (converted to fp32 as they are
+    loaded); ``block_tables`` and ``context_lens`` are int32 on the same
+    device; the caller keeps every block id below ``num_blocks`` and every
+    context length in ``[1, max_blocks * block_size]`` (the kernel clamps
+    the length, it cannot check ids).  Launches on one device share the
+    kernel's counters, so they must not run concurrently on two streams.
     """
     tensors = (q, k_step, v_step, k_pages, v_pages, block_tables,
                context_lens)
@@ -181,19 +224,33 @@ def fused_paged_decode_attention(q, k_step, v_step, k_pages, v_pages,
     if k_pages.dim() != 4 or k_pages.shape[-1] not in _HEAD_DIMS:
         raise MXNetError("paged_decode: pages must be [N, blk, H, D] with D "
                          "in %s, got %s" % (_HEAD_DIMS, tuple(k_pages.shape)))
+    dtype = k_pages.dtype
+    if dtype not in _DECODE_DTYPES:
+        raise MXNetError("paged_decode: pools must be float32 or bfloat16, "
+                         "got %s" % dtype)
     _, blk, heads, dim = k_pages.shape
     bsz, max_blocks = block_tables.shape
     for t in (q, k_step, v_step):
-        require("paged_decode", t, torch.float32, (bsz, heads, dim))
+        require("paged_decode", t, dtype, (bsz, heads, dim), align=16)
     for t in (k_pages, v_pages):
-        require("paged_decode", t, torch.float32, k_pages.shape)
+        require("paged_decode", t, dtype, k_pages.shape, align=16)
     require("paged_decode", block_tables, torch.int32)
     require("paged_decode", context_lens, torch.int32, (bsz,))
     scale = 1.0 / float(dim) ** 0.5 if sm_scale is None else float(sm_scale)
-    out = torch.empty_like(q)
+    splits = decode_splits(bsz, heads, max_blocks, blk,
+                           torch.cuda.get_device_properties(
+                               q.device).multi_processor_count)
+    out = torch.empty(bsz, heads, dim, dtype=torch.float32, device=q.device)
+    partial = counters = None
+    if splits > 1:
+        partial = torch.empty(bsz * heads * splits * (dim + 2),
+                              dtype=torch.float32, device=q.device)
+        counters = _decode_counters(q.device, bsz * heads)
     PAGED_DECODE.launch(
         q.device, q.data_ptr(), k_step.data_ptr(), v_step.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-        context_lens.data_ptr(), out.data_ptr(), bsz, heads, dim, blk,
-        max_blocks, scale)
+        context_lens.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(), bsz, heads, dim,
+        blk, max_blocks, splits, _DECODE_DTYPES[dtype], scale)
     return out

@@ -2,7 +2,9 @@
 
 Counterpart of ``mxnet_tpu/ops/fused/norm_kernels.py`` (``fused_lm_layer_norm``,
 ``fused_lm_gelu_bias`` and ``fused_layer_norm_op``).  The kernels are in
-``csrc/norm_kernels.cu``.  :func:`lm_layer_norm`, :func:`lm_gelu_bias` and
+``csrc/norm_kernels.cu``; the LM layer norm and the epilogue take fp32, the
+``LayerNorm`` op's forward fp32, bf16 or fp16 data (fp32 math, the output in
+the data's dtype).  :func:`lm_layer_norm`, :func:`lm_gelu_bias` and
 :func:`fused_layer_norm_op` run the kernel for a CUDA tensor and the plain
 version for a CPU tensor.
 
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from ...base import MXNetError
 from .._build import Kernel, device_kind, require
 
-__all__ = ["LAYER_NORM_OP", "LM_GELU_BIAS", "LM_LAYER_NORM",
+__all__ = ["LAYER_NORM_OP", "LAYER_NORM_OP_V1", "LM_GELU_BIAS", "LM_LAYER_NORM",
            "fused_layer_norm_op", "layer_norm_op", "layer_norm_op_backward",
            "layer_norm_op_plain", "lm_gelu_bias", "lm_gelu_bias_plain",
            "lm_layer_norm", "lm_layer_norm_plain"]
@@ -40,7 +42,15 @@ LM_GELU_BIAS = Kernel(
     [_P, _P, _P, ctypes.c_longlong, ctypes.c_int])
 LAYER_NORM_OP = Kernel(
     "layer_norm_op", "norm_kernels", "mxtpu_layer_norm_op",
+    [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                ctypes.c_int])
+# The first LayerNorm op kernel (one block a row), fp32, with
+# LAYER_NORM_OP's arguments but the dtype: a run on the card times it
+# beside LAYER_NORM_OP; no path of the package launches it.
+LAYER_NORM_OP_V1 = Kernel(
+    "layer_norm_op_v1", "norm_kernels", "mxtpu_layer_norm_op_v1",
     [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float])
+_LN_OP_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def lm_layer_norm_plain(x, gamma, beta):
@@ -94,21 +104,28 @@ def lm_gelu_bias(h, bias):
 def layer_norm_op_plain(x, gamma, beta, eps=_LN_EPS):
     """The ``LayerNorm`` op over the last axis → ``(y, mean, rstd)``,
     ``mean``/``rstd`` fp32 ``[rows]``: ``(x - mean) * rsqrt(var + eps) *
-    gamma + beta``, population variance (``ops/attention.py
-    _layer_norm``'s spelling)."""
-    mean = x.mean(-1, keepdim=True)
-    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    gamma + beta`` in fp32, population variance (``ops/attention.py
+    _layer_norm``'s spelling), ``y`` cast back to ``x``'s dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
-    y = (x - mean) * rstd * gamma + beta
-    return y, mean.reshape(-1), rstd.reshape(-1)
+    y = (xf - mean) * rstd * gamma.float() + beta.float()
+    return y.to(x.dtype), mean.reshape(-1), rstd.reshape(-1)
 
 
 def fused_layer_norm_op(x, gamma, beta, eps=_LN_EPS):
-    """``(y, mean, rstd)`` of the ``LayerNorm`` op on fp32 ``x [..., C]``
-    (kernel for CUDA tensors, :func:`layer_norm_op_plain` for CPU ones)."""
+    """``(y, mean, rstd)`` of the ``LayerNorm`` op on ``x [..., C]``, fp32,
+    bf16 or fp16, with fp32 ``gamma``/``beta`` (kernel for CUDA tensors,
+    :func:`layer_norm_op_plain` for CPU ones).  ``y`` has ``x``'s dtype;
+    ``mean`` and ``rstd`` are fp32."""
     if device_kind((x, gamma, beta)) == "cpu":
         return layer_norm_op_plain(x, gamma, beta, eps)
-    for t in (x, gamma, beta):
+    if x.dtype not in _LN_OP_DTYPES:
+        raise MXNetError("layer_norm_op: x must be float32, bfloat16 or "
+                         "float16, got %s" % x.dtype)
+    require("layer_norm_op", x, x.dtype, align=x.element_size())
+    for t in (gamma, beta):
         require("layer_norm_op", t, torch.float32)
     cols = x.shape[-1]
     if gamma.shape != (cols,) or beta.shape != (cols,):
@@ -120,7 +137,8 @@ def fused_layer_norm_op(x, gamma, beta, eps=_LN_EPS):
     rstd = torch.empty_like(mean)
     LAYER_NORM_OP.launch(x.device, x.data_ptr(), gamma.data_ptr(),
                          beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
-                         rstd.data_ptr(), rows, cols, float(eps))
+                         rstd.data_ptr(), rows, cols, float(eps),
+                         _LN_OP_DTYPES[x.dtype])
     return y, mean, rstd
 
 
@@ -154,7 +172,8 @@ class _LayerNormOp(torch.autograd.Function):
 
 
 def layer_norm_op(x, gamma, beta, eps=_LN_EPS):
-    """Differentiable ``LayerNorm`` over the last axis of fp32 ``x``.
+    """Differentiable ``LayerNorm`` over the last axis of ``x`` (the
+    training path is fp32: the registry op refuses other dtypes).
     Meta tensors (shape inference) give an empty output of the shape."""
     if x.is_meta:
         return torch.empty_like(x)

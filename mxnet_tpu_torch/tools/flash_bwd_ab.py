@@ -1,7 +1,8 @@
 """A/B of the flash backward pair: this checkout's kernels against another
-checkout's, on one card.
+checkout's, on one card; and the flash forward's error against float64.
 
     python3 -m mxnet_tpu_torch.tools.flash_bwd_ab --other DIR
+    python3 -m mxnet_tpu_torch.tools.flash_bwd_ab --forward [--other DIR]
 
 ``DIR`` is the root of another checkout (for example a ``git archive`` of
 the parent commit).  Its ``mxnet_tpu_torch/csrc/attention_kernels.cu`` is
@@ -17,6 +18,13 @@ o and lse, and the tool prints:
   1024, 2048 and 4096, beside the fp32 plain version's own;
 - each pair's device time at each ``--shapes`` entry (B,H,T), timed in
   turns (other, this, this, other; CUDA-graph replay of 10 launches).
+
+``--forward`` (``--other`` optional) prints instead the largest error of
+the flash forward kernel's o and lse (``fused_flash_fwd``, causal, D 64;
+the other checkout's ``mxtpu_flash_prefill`` too) against the float64 plain
+forward at B 1, 16 heads, T 512, 1024, 2048 and 4096, beside the fp32 plain
+version's own, and the kernels' times at each ``--shapes`` entry, in turns
+when there are two.
 """
 
 from __future__ import annotations
@@ -33,14 +41,13 @@ from ..ops import _build
 from ..ops import attention as att
 from ..ops.fused import attention_kernels as ak
 
-__all__ = ["build_other", "main"]
+__all__ = ["build_other", "forward_errors", "main"]
 
 _SYMBOLS = (("mxtpu_flash_bwd_dkdv", 8), ("mxtpu_flash_bwd_dq", 7))
 
 
-def build_other(root):
-    """Build ``root``'s attention library; returns its two backward entry
-    points as ctypes functions ``(dkdv, dq)``."""
+def _other_lib(root):
+    """Build and load ``root``'s attention library."""
     csrc = os.path.join(root, "mxnet_tpu_torch", "csrc")
     out_dir = os.path.join(root, "build", "flash_bwd_ab")
     os.makedirs(out_dir, exist_ok=True)
@@ -51,7 +58,13 @@ def build_other(root):
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed on %s:\n%s" % (root, proc.stdout
                                                        + proc.stderr))
-    lib = ctypes.CDLL(lib_path)
+    return ctypes.CDLL(lib_path)
+
+
+def build_other(root):
+    """Build ``root``'s attention library; returns its two backward entry
+    points as ctypes functions ``(dkdv, dq)``."""
+    lib = _other_lib(root)
     fns = []
     for symbol, nptr in _SYMBOLS:
         fn = getattr(lib, symbol)
@@ -108,12 +121,72 @@ def _graph_ms(fn, iters=10):
     return start.elapsed_time(stop) / iters
 
 
+def _other_forward(lib):
+    """``(q, k, v) -> (o, lse)``, causal, through the other checkout's
+    ``mxtpu_flash_prefill``, as ``fused_flash_fwd`` calls this one's."""
+    fn = lib.mxtpu_flash_prefill
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def run(q, k, v):
+        b, h, t, d = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              lse.data_ptr(), b, h, t, t, d, 1, d ** -0.5,
+              torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("flash forward launch failed")
+        return o, lse
+    return run
+
+
+def forward_errors(shapes, other=None):
+    """The flash forward's o and lse against float64, by T (this
+    checkout's kernel, ``other``'s when given, the fp32 plain version);
+    the kernels' times at ``shapes``, in turns when there are two."""
+    runs = {"this": lambda q, k, v: ak.fused_flash_fwd(q, k, v, True)}
+    if other is not None:
+        runs["other"] = _other_forward(_other_lib(other))
+    for t in (512, 1024, 2048, 4096):
+        rng = np.random.RandomState(t)
+        q, k, v = (torch.from_numpy(rng.randn(1, 16, t, 64)
+                                    .astype(np.float32)).cuda()
+                   for _ in range(3))
+        o64, lse64 = att.flash_fwd_plain(q.double(), k.double(), v.double(),
+                                         True)
+        got = {name: run(q, k, v) for name, run in runs.items()}
+        got["plain fp32"] = att.flash_fwd_plain(q, k, v, True)
+        for name, (o, lse) in got.items():
+            print("[B=1 H=16 T=%d] forward %-10s against float64: o %.3e, "
+                  "lse %.3e" % (t, name, (o.double() - o64).abs().max().item(),
+                                (lse.double() - lse64).abs().max().item()))
+        del o64, lse64, got
+    for shape in shapes:
+        b, h, t = (int(x) for x in shape.split(","))
+        q, k, v = _inputs(b, h, t, 1)[:3]
+        ms = {name: [] for name in runs}
+        for name in (("other", "this", "this", "other") if other else
+                     ("this",)):
+            ms[name].append(_graph_ms(lambda: runs[name](q, k, v)))
+        print("[B=%d H=%d T=%d, causal, D 64] forward with lse: %s"
+              % (b, h, t, ", ".join("%s %.4f ms" % (n, sum(v_) / len(v_))
+                                    for n, v_ in ms.items())
+                 + (" (in turns)" if other else "")))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--other", required=True)
+    parser.add_argument("--other")
+    parser.add_argument("--forward", action="store_true")
     parser.add_argument("--shapes", nargs="*", default=["1,16,2048",
                                                         "8,16,2048"])
     args = parser.parse_args(argv)
+    if args.forward:
+        forward_errors(args.shapes, args.other and os.path.abspath(args.other))
+        return
+    if not args.other:
+        parser.error("the backward A/B needs --other")
     pairs = {"other": _other_pair(build_other(os.path.abspath(args.other))),
              "this": lambda *xs: ak.fused_flash_bwd(*xs, True)}
     for t in (512, 1024, 2048, 4096):

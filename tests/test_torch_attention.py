@@ -5,10 +5,11 @@ Prefill: the port's ``fused_prefill_attention`` on CPU tensors (its plain
 version) against the JAX package's ``fused_prefill_attention`` (the Pallas
 flash kernel, interpret mode) and ``_stable_causal_attention_stock``,
 including a ragged T.  Paged decode: against ``fused_paged_decode_attention``
-(interpret mode) on two cases of that kernel's own parity grid
-(``attention_kernels.py`` ``_paged_case``).  Tolerance 2e-5 absolute and
-relative (fp32 class): the two frameworks sum the softmax and P.V in
-different orders.  Torch runs on one intra-op thread here.
+(interpret mode) on three cases of that kernel's own parity grid
+(``attention_kernels.py`` ``_paged_case``), the bf16 pool among them.
+Tolerance 2e-5 absolute and relative (fp32 class) for fp32 inputs: the two
+frameworks sum the softmax and P.V in different orders; the bf16 case is held
+to the bf16 class of ``parity._TOL``.  Torch runs on one intra-op thread here.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ import jax.numpy as jnp
 
 from mxnet_tpu.ops import attention as jatt
 from mxnet_tpu.ops.fused import attention_kernels as jak
+from mxnet_tpu.ops.fused.parity import _TOL
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention as patt
 from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -73,14 +75,36 @@ def test_prefill_continuation_mask_matches_stock():
 @pytest.mark.parametrize("case", [
     ("float32", 2, 16, 8, 3, (5, 20)),        # ragged contexts
     ("float32", 4, 32, 16, 2, (1, 17, 32)),   # ctx=1 and a full tail
+    ("bfloat16", 2, 64, 8, 2, (3, 9)),        # bf16 pool, fp32 math
 ])
 def test_paged_decode_matches_jax_kernel(case):
     _, fused, args = jak._paged_case(case)
     want = np.asarray(fused(*args))
-    np_args = [np.array(a) for a in args]
-    got = pak.fused_paged_decode_attention(
-        *[torch.from_numpy(a) for a in np_args])
-    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    # torch.from_numpy refuses ml_dtypes' bfloat16: go through float32
+    dtype = getattr(torch, case[0])
+    got = pak.fused_paged_decode_attention(*[
+        torch.from_numpy(np.asarray(a).astype(np.float32)).to(dtype)
+        if a.dtype == jnp.bfloat16 else torch.from_numpy(np.array(a))
+        for a in args])
+    assert got.dtype == torch.float32
+    rtol, atol = _TOL[case[0]] if case[0] != "float32" else (TOL, TOL)
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
+
+
+def test_decode_splits_cover_the_card():
+    """The paged decode kernel's split count: about 4 blocks per SM over
+    B * H * splits, no split of a full table under 64 keys, at most one
+    split per page, at least one."""
+    sms = 132
+    # the lane's step: 8 sequences, 16 heads, 128 pages of 16
+    assert pak.decode_splits(8, 16, 128, 16, sms) == 5
+    assert pak.decode_splits(1, 16, 128, 16, sms) == 32    # 2048 // 64 keys
+    assert pak.decode_splits(64, 16, 128, 16, sms) == 1
+    assert pak.decode_splits(1, 1, 3, 4, sms) == 1          # 12 keys
+    assert pak.decode_splits(1, 1, 1000, 1, sms) == 15      # 1000 // 64
+    for bsz in (1, 2, 8, 32):
+        s = pak.decode_splits(bsz, 16, 128, 16, sms)
+        assert 1 <= s <= 32 and (bsz * 16 * s >= 4 * sms or s == 32)
 
 
 def test_paged_decode_ignores_pad_pages_and_tails():

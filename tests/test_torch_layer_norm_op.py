@@ -6,7 +6,10 @@ stock op ``_layer_norm``.  Gradient: the port's ``torch.autograd.Function``
 (backward from the forward's row statistics) against ``jax.grad`` of the
 stock ``_layer_norm``, because the Pallas kernel has no gradient rule.
 Tolerance 2e-5 (the fp32 class of the JAX parity harness) for the forward
-and 1e-4 for gradients, which sum over every row.
+and 1e-4 for gradients, which sum over every row.  The reference grid's bf16
+and fp16 cases (``norm_kernels.py`` ``_ln_op_case``) hold the forward's plain
+version, fp32 math with y in the data's dtype, to ``parity._TOL``'s class of
+that dtype.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 
 from mxnet_tpu.ops import attention as jatt
 from mxnet_tpu.ops.fused import norm_kernels as jnk
+from mxnet_tpu.ops.fused.parity import _TOL
 from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
 from mxnet_tpu_torch.ops.fused import norm_kernels as pnk
 from mxnet_tpu_torch.ops.registry import get_op
@@ -57,6 +61,29 @@ def test_layer_norm_op_forward_and_gradient_match_jax(shape, axis):
     for gt, wt in zip(got, want):
         np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
                                    rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_layer_norm_op_low_precision_matches_jax():
+    for case in (("bfloat16", (3, 5, 64)), ("float16", (2, 9, 17))):
+        stock, fused, (data, gamma, beta) = jnk._ln_op_case(case)
+        want_kernel = np.asarray(fused(data, gamma, beta)).astype(np.float32)
+        want_stock = np.asarray(stock(data, gamma, beta)).astype(np.float32)
+        dtype = getattr(torch, case[0])
+        x = torch.from_numpy(np.asarray(data).astype(np.float32)).to(dtype)
+        y, mean, rstd = pnk.fused_layer_norm_op(
+            x, torch.from_numpy(np.array(gamma)),
+            torch.from_numpy(np.array(beta)))
+        assert y.dtype == dtype and mean.dtype == rstd.dtype == torch.float32
+        rtol, atol = _TOL[case[0]]
+        for want in (want_kernel, want_stock):
+            np.testing.assert_allclose(y.float().numpy(), want, rtol=rtol,
+                                       atol=atol)
+        x64 = np.asarray(data).astype(np.float64).reshape(-1, case[1][-1])
+        np.testing.assert_allclose(mean.numpy(), x64.mean(-1), rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(rstd.numpy(),
+                                   1 / np.sqrt(x64.var(-1) + 1e-5),
+                                   rtol=TOL, atol=TOL)
 
 
 def test_row_statistics_are_mean_and_rsqrt_of_population_variance():
