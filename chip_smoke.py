@@ -31,8 +31,13 @@ Phases, each fatal on failure:
    design (v1); the paged decode (split over the context, partials merged
    in order) in fp32 and with bf16 pools at the lane's 8 sequences, at
    B 1 and at a context of 1, two calls giving equal bits, in turns with
-   its first design (v1).  The earlier kernels kept for these timings must
-   launch on no main path.
+   its first design (v1).  The bf16 flash forward and backward pair (the
+   bench LM's dtype) against their plain versions in bf16 at the training
+   shape, at ragged T, Tk != T and head dims 32 and 128 (the bf16 class for
+   o, dq, dk, dv; 1e-4 for lse), two backward calls giving equal bits, the
+   gradients' errors against float64 at T 512 and 2048, and their times
+   beside SDPA's bf16 forward and autograd backward.  The earlier kernels
+   kept for these timings must launch on no main path.
 4. The generation lane at the full width of the LM the repo benches
    (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
    vocab 32000, seq_len 2048), fp32, random weights from a seed: an
@@ -45,14 +50,19 @@ Phases, each fatal on failure:
    at the same position.
 5. One ``ShardedTrainer`` step of the LM at full width cut to 2 layers,
    batch 1, T 512, on the card and on the CPU (plain versions) from the
-   same ``init(seed=0)`` and batch: outputs, weights and momenta agree.
+   same ``init(seed=0)`` and batch, in fp32 and in bf16: outputs, weights
+   and momenta agree (1e-3 and the bf16 class of each tensor's largest
+   value), parameters and momenta fp32 in both.
 6. Training the bench LM configuration (12 layers, batch 8, T 2048, SGD
-   momentum 0.9, lr 1e-3, fp32) through ``get_symbol`` ->
-   ``ShardedTrainer`` -> ``init`` -> ``place_batch`` -> ``step_fn``: one
-   warm-up step and 5 timed steps on one seeded batch, whose losses must be
-   finite and falling; step time, tokens/s, peak memory, launches per step
-   and, from one profiled step, the card's idle share and its time by
-   kernel.  Counts are zeroed just before and read just after.
+   momentum 0.9, lr 1e-3) through ``get_symbol`` -> ``ShardedTrainer`` ->
+   ``init`` -> ``place_batch`` -> ``step_fn``, in bf16 (the bench's dtype:
+   fp32 parameters, bf16 activations, the bf16 flash kernels) and then in
+   fp32 (the 3xTF32 flash kernels): one warm-up step and 5 timed steps on
+   one seeded batch, whose losses must be finite and falling; the flash
+   kernels of the dtype once a layer a step and those of the other dtype
+   never; step time, tokens/s, peak memory, launches per step and, from
+   one profiled step, the card's idle share and its time by kernel group
+   and kernel.  Counts are zeroed just before and read just after each.
 7. One ``ShardedTrainer`` step of ResNet-50 at full width, 64 px, batch 2,
    fp32, from the same ``init(seed=0)`` and batch: on the card under
    ``MXTPU_CONV1X1`` = pallas, dot and unset, on the CPU in fp32 and
@@ -741,6 +751,225 @@ def check_training_kernels(dev, cfg):
     return rows
 
 
+# The bf16 class of the JAX package's parity harness (ops/fused/parity.py):
+# the bf16 flash kernels and their plain versions round p and ds to bf16 on
+# the way and o, dq, dk, dv once at the end, after sums taken in other
+# orders, so a value may land an ulp (2^-8 to 2^-7 of it) apart.
+FLASH_BF16_TOL = 2e-2
+# The same outputs held, besides, to a gate scaled to the data: two bf16
+# ulps of the largest value of the element's own row (a query's o or dq, a
+# key's dk or dv), |err| <= 2^-6 max_row |want|.  At the training shape
+# most rows of o and dq are averages over hundreds of keys, a few e-2 in
+# size, where 2e-2 absolute would pass a result that lost a key tile.  The
+# kernels round p against a running row max and the plain version against
+# the final one, so one p may land a bf16 ulp apart and move an early row,
+# where a few keys carry the sum, by 2^-8 of one term: a share of its
+# row's largest value, not of the element's own size.  A row whose
+# exact value is 0 (dq of query 0 under causal: one key, so dp = delta) is
+# held as a row of 2^-8 of the tensor's RMS, where the kernels' and the plain
+# version's fp32 cancellations leave ~1e-8 of noise.
+FLASH_BF16_ULPS = 2.0 ** -6
+
+
+def bf16_share(got, want):
+    """The share of the data-scaled gate each element of ``got`` uses
+    against ``want`` (the gate fails above 1): ``(largest share, its row's
+    largest |want|, the element's |want|)``."""
+    import torch
+
+    g, w = got.float(), want.float()
+    row = torch.maximum(w.abs().amax(-1, keepdim=True),
+                        2.0 ** -8 * w.pow(2).mean().sqrt())
+    share = (g - w).abs() / (FLASH_BF16_ULPS * row)
+    at = int(share.argmax())
+    return (share.flatten()[at].item(),
+            row.expand_as(w).flatten()[at].item(), w.abs().flatten()[at].item())
+
+
+def bf16_err(got, want, name):
+    """Hold a bf16 output to its plain version within the bf16 class and
+    within the data-scaled gate; returns the largest error."""
+    err = max_err(got.float(), want.float(), FLASH_BF16_TOL, name)
+    share, row, val = bf16_share(got, want)
+    print("  %-14s share of the data-scaled gate %.3f  (2^-6 of the row's "
+          "largest |want|; worst at |want| %.3e, row's largest %.3e)"
+          % ("", share, val, row))
+    if not share <= 1.0:
+        raise SmokeError("%s kernel disagrees with its plain version by "
+                         "%.3f of the data-scaled gate" % (name, share))
+    return err
+
+
+def gate_control(got, want, name):
+    """A planted fault must fail the data-scaled gate: prints the share
+    each gate gives ``got`` (a plain version with a tile dropped) against
+    ``want`` (the plain version), and raises if the data-scaled gate would
+    pass it."""
+    g, w = got.float(), want.float()
+    parity = ((g - w).abs() / (FLASH_BF16_TOL + FLASH_BF16_TOL * w.abs())
+              ).max().item()
+    share = bf16_share(got, want)[0]
+    print("  control %-18s max|err| %.3e  share of the bf16 class %.3f, "
+          "of the data-scaled gate %.3f" % (name, (g - w).abs().max().item(),
+                                            parity, share))
+    if not share > 1.0:
+        raise SmokeError("the data-scaled gate passes %s" % name)
+
+
+def check_bf16_flash(dev, cfg):
+    """The bf16 flash forward with lse (row 1) and backward pair (rows 2,
+    3), the kernels of the bench LM's own dtype, against their plain
+    versions in bf16 at the training shape (batch 8, T 2048, causal, D 64),
+    at ragged T, Tk != T and the other head dims; their gradients against
+    float64 at T 512 and 2048; their times beside SDPA's in bf16.  Returns
+    the kernel rows of the JSON line (launches filled in later)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops.fused import attention_kernels as ak
+
+    rng = np.random.RandomState(SEED + 5)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev).to(bf16)
+
+    b, t = TRAIN_BATCH, cfg["seq_len"]
+    heads = cfg["num_heads"]
+    d = cfg["num_embed"] // heads
+
+    def check(q, k, v, do, causal, scale, tag):
+        """Forward and backward against the plain versions; returns the
+        outputs, the plain o and gradients, and the largest errors (o and
+        lse, the gradients)."""
+        o, lse = ak.fused_flash_fwd(q, k, v, causal, scale)
+        o_p, lse_p = att.flash_fwd_plain(q, k, v, causal, scale)
+        errs = [bf16_err(o, o_p, "bf16 o " + tag),
+                max_err(lse, lse_p, FLASH_TOL, "bf16 lse " + tag)]
+        del lse_p
+        grads = ak.fused_flash_bwd(q, k, v, o, lse, do, causal, scale)
+        want = att.flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
+        for name, g_, w_ in zip(("dq", "dk", "dv"), grads, want):
+            errs.append(bf16_err(g_, w_, "bf16 %s %s" % (name, tag)))
+        if not (o.dtype == bf16 and lse.dtype == torch.float32
+                and all(g_.dtype == bf16 for g_ in grads)):
+            raise SmokeError("bf16 flash: o, dq, dk, dv must be bf16 and "
+                             "lse fp32, got %s, %s, %s" % (
+                                 o.dtype, lse.dtype,
+                                 [g_.dtype for g_ in grads]))
+        return o, lse, grads, (o_p, want), errs
+
+    q, k, v, do = (randn(b, heads, t, d) for _ in range(4))
+    o, lse, (dq, dk, dv), (o_p, want), errs = check(
+        q, k, v, do, True, None, "B=%d T=%d" % (b, t))
+    err_o, err_dq, err_dk, err_dv = max(errs[:2]), errs[2], errs[3], errs[4]
+    # controls of the gates: the plain versions with the last tile of 64
+    # keys dropped (forward, dQ: the last 64 queries lose their last key
+    # tile) or of 64 queries dropped (dK, dV: do zeroed there) must fail
+    # the data-scaled gate; the bf16 class's share is printed beside it
+    cut = (k[:, :, :-64].contiguous(), v[:, :, :-64].contiguous())
+    gate_control(att.flash_fwd_plain(q, *cut, True)[0], o_p,
+                 "o, a key tile dropped")
+    gate_control(att.flash_bwd_plain(q, *cut, o, lse, do, True)[0], want[0],
+                 "dq, a key tile dropped")
+    do_cut = do.clone()
+    do_cut[:, :, -64:] = 0
+    for name, g_, w_ in zip(("dk", "dv"), att.flash_bwd_plain(
+            q, k, v, o, lse, do_cut, True)[1:], want[1:]):
+        gate_control(g_, w_, "%s, a query tile dropped" % name)
+    del cut, do_cut, o_p
+    again = ak.fused_flash_bwd(q, k, v, o, lse, do, True)
+    for name, first, second in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        if not torch.equal(first, second):
+            raise SmokeError("bf16 flash backward: %s differs between two "
+                             "calls on the same inputs" % name)
+    print("  bf16 flash backward: two calls on the same inputs give "
+          "bitwise-equal dq, dk, dv")
+    del again
+    # against float64 (the exact gradients of the bf16 inputs), a control
+    # reading, not a gate: the kernels' and the bf16 plain version's largest
+    # errors at T 512 and 2048 (they should not grow with T)
+    for tl in (512, t):
+        xs = (q, k, v, do) if tl == t else tuple(
+            x[:, :, :tl].contiguous() for x in (q, k, v, do))
+        if tl == t:
+            got, plain = (dq, dk, dv), want
+        else:
+            ol, ll = ak.fused_flash_fwd(*xs[:3], True)
+            got = ak.fused_flash_bwd(*xs[:3], ol, ll, xs[3], True)
+            plain = att.flash_bwd_plain(*xs[:3], ol, ll, xs[3], True)
+        float64_errors(xs, {"kernels": got, "plain bf16": plain},
+                       "bf16 B=%d T=%d" % (b, tl))
+        del got, plain, xs
+    del want
+    # ragged, not causal, a scale other than 1/sqrt(D), and Tk != T
+    for bq, tq, tk, causal, scale in ((1, 333, 333, False, 0.3),
+                                      (1, 333, 300, True, None),
+                                      (TRAIN_BATCH, 333, 300, False, None)):
+        check(randn(bq, heads, tq, d), randn(bq, heads, tk, d),
+              randn(bq, heads, tk, d), randn(bq, heads, tq, d), causal, scale,
+              "B=%d T=%d Tk=%d%s" % (bq, tq, tk, " causal" if causal else ""))
+    # the other head dims, causal with Tk != T
+    for dh in (32, 128):
+        check(randn(2, 4, 150, dh), randn(2, 4, 130, dh),
+              randn(2, 4, 130, dh), randn(2, 4, 150, dh), True, None,
+              "D=%d" % dh)
+
+    pairs = b * heads * t * (t + 1) // 2
+    n, nrows = q.numel(), lse.numel()
+    scale = 1.0 / d ** 0.5
+    delta = (do.float() * o.float()).sum(-1)
+    dims = (b, heads, t, t, d, 1, scale)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    fwd_ms = cuda_ms(lambda i: ak.fused_flash_fwd(q, k, v, True), 10)
+    kv_ms = cuda_ms(lambda i: ak.FLASH_BWD_DKDV_BF16.launch(
+        dev, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims), 10)
+    q_ms = cuda_ms(lambda i: ak.FLASH_BWD_DQ_BF16.launch(
+        dev, *ptrs, dq.data_ptr(), *dims), 10)
+    plain_fwd = cuda_ms(lambda i: att.flash_fwd_plain(q, k, v, True), 2)
+    plain_bwd = cuda_ms(lambda i: att.flash_bwd_plain(q, k, v, o, lse, do,
+                                                      True), 2)
+    lib_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 10)
+    q_, k_, v_ = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+    lib_bwd = events_ms(lambda: torch.autograd.grad(
+        lib_out, (q_, k_, v_), do, retain_graph=True), 5)
+    # bytes: each input read once, each output written once (bf16 tensors,
+    # fp32 lse and delta); operations: 2 D per (query, key) pair at or
+    # below the diagonal for each product (forward 2, dK/dV 4, dQ 3)
+    nb, by = bound(4 * n * 2 + nrows * 4, 4 * d * pairs, PEAK_BF16_FLOPS)
+    nb_kv, by_kv = bound(6 * n * 2 + 2 * nrows * 4, 8 * d * pairs,
+                         PEAK_BF16_FLOPS)
+    nb_q, by_q = bound(5 * n * 2 + 2 * nrows * 4, 6 * d * pairs,
+                       PEAK_BF16_FLOPS)
+    print("  [bf16 flash, training shape [%d, %d, %d, %d] causal] forward "
+          "%.4f ms (SDPA %.4f, bound %.4f); dK/dV %.4f ms + dQ %.4f ms = "
+          "%.4f ms (SDPA's autograd backward %.4f, bounds %.4f + %.4f)"
+          % (b, heads, t, d, fwd_ms, lib_fwd, nb, kv_ms, q_ms, kv_ms + q_ms,
+             lib_bwd, nb_kv, nb_q))
+    src = "mxnet_tpu_torch/csrc/flash_bf16.cu"
+    rows = [
+        {"name": "flash_fwd_bf16", "route": "cuda", "source": src,
+         "replaces": "mxnet_tpu/ops/attention.py:281", "max_abs_err": err_o,
+         "ms": fwd_ms, "plain_ms": plain_fwd, "bound_ms": nb,
+         "bound_by": by, "library_ms": lib_fwd},
+        {"name": "flash_bwd_dkdv_bf16", "route": "cuda", "source": src,
+         "replaces": "mxnet_tpu/ops/attention.py:572",
+         "max_abs_err": max(err_dk, err_dv), "ms": kv_ms,
+         "plain_ms": plain_bwd, "bound_ms": nb_kv, "bound_by": by_kv,
+         "library_ms": lib_bwd},
+        {"name": "flash_bwd_dq_bf16", "route": "cuda", "source": src,
+         "replaces": "mxnet_tpu/ops/attention.py:596",
+         "max_abs_err": err_dq, "ms": q_ms, "plain_ms": plain_bwd,
+         "bound_ms": nb_q, "bound_by": by_q, "library_ms": lib_bwd}]
+    del q, k, v, do, o, lse, dq, dk, dv, delta, q_, k_, v_, lib_out
+    return rows
+
+
 # bf16 and fp16 outputs against the plain version's: both round one fp32
 # value to the dtype, which may land an ulp apart (the JAX package's parity
 # classes, ops/fused/parity.py).
@@ -1306,19 +1535,45 @@ STEP_BATCH = 1
 # of n terms can be off by n * 6e-8 relative, 2e-3 at n = 32000, and the
 # typical error is far smaller.
 STEP_TOL = 1e-3
+# The same step in bf16 (the bench's dtype): the card rounds each bf16
+# product once after an fp32 sum (cuBLAS, with reduced-precision reductions
+# off, and the flash kernels), the CPU after its own sums, so an activation
+# can land an ulp (2^-8) apart and the gradients carry it: the bf16 class of
+# the JAX parity harness, of each tensor's largest value.
+BF16_STEP_TOL = 2e-2
+# Its outputs, the probabilities, come from bf16 logits (the graph casts
+# pred's output to fp32 after the bf16 projection): p = exp(z - lse) moves
+# by the factor exp(dz) when z lands an ulp apart, and with the trainer's
+# Uniform(0.07) init the logits reach |z| 4-8, where a bf16 ulp is 2^-5.
+# So the logs of the probabilities are held to four such ulps.
+BF16_LOGP_TOL = 4 * 2.0 ** -5
 DRIVE_STEPS = 5
 
 
 def _trainer(cfg, batch, device):
+    import torch
+
     from mxnet_tpu_torch.models import transformer as tfm
     from mxnet_tpu_torch.parallel import ShardedTrainer
 
     t = cfg["seq_len"]
-    return ShardedTrainer(
+    # the trainer, not this script, keeps cuBLAS's 16-bit GEMMs from
+    # reducing split-K partials in 16 bits: the switch is put back to
+    # torch's default before each trainer on the card is built, and must
+    # be off after
+    on_card = str(device) != "cpu"
+    matmul = torch.backends.cuda.matmul
+    if on_card:
+        matmul.allow_bf16_reduced_precision_reduction = True
+    tr = ShardedTrainer(
         tfm.get_symbol(**cfg), None, data_shapes={"data": (batch, t)},
         label_shapes={"softmax_label": (batch, t)},
         type_dict={"data": "int32"}, learning_rate=1e-3, momentum=0.9,
         rescale_grad=1.0 / (batch * t), device=device)
+    if on_card and matmul.allow_bf16_reduced_precision_reduction:
+        raise SmokeError("ShardedTrainer on the card left cuBLAS's bf16 "
+                         "reduced-precision reductions on")
+    return tr
 
 
 def _host_batch(cfg, batch, seed):
@@ -1329,17 +1584,66 @@ def _host_batch(cfg, batch, seed):
             .astype(np.float32)}
 
 
-def check_training_step(dev):
-    """One ShardedTrainer step on the card (kernels) and on the CPU (plain
-    versions) from the same init(seed) and batch: outputs, every updated
-    weight and every momentum must agree."""
+def _step_errors(got, want, dtype):
+    """Card against CPU for one step's ``(outputs, weights, momenta)``:
+    the worst reading of each kind ``(err, name)`` and the readings over
+    their gates."""
     import torch
 
-    host = _host_batch(STEP_CHECK, STEP_BATCH, SEED + 4)
-    res = []
-    for device in (dev, "cpu"):
+    tol = STEP_TOL if dtype == "float32" else BF16_STEP_TOL
+    worst, bad = {}, []
+    for kind, g_, w_ in zip(("output", "weight", "momentum"), got, want):
+        for n in w_:
+            if g_[n].dtype != w_[n].dtype or (
+                    kind != "output" and w_[n].dtype != torch.float32):
+                raise SmokeError("training step (%s): %s %s is %s on the "
+                                 "card, %s on the CPU" % (
+                                     dtype, kind, n, g_[n].dtype,
+                                     w_[n].dtype))
+            g, w = g_[n].cpu().double(), w_[n].double()
+            if kind == "output" and dtype != "float32":
+                # probabilities from bf16 logits: compare their logs
+                err = (g.log() - w.log()).abs().max().item()
+                gate = BF16_LOGP_TOL
+            else:
+                err = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)
+                       ).item()
+                gate = tol
+            if not np.isfinite(err) or err > gate:
+                bad.append("%s %s %.3e" % (kind, n, err))
+            if err >= worst.get(kind, (-1.0, ""))[0]:
+                worst[kind] = (err, n)
+    return worst, bad
+
+
+def _drop_last_key_tile(fwd):
+    """``fused_flash_fwd`` with a planted fault: under ``causal`` the last
+    64 keys are never read (the last 64 queries lose their last key
+    tile)."""
+    def faulty(q, k, v, causal=True, sm_scale=None):
+        if causal:
+            k, v = k[:, :, :-64].contiguous(), v[:, :, :-64].contiguous()
+        return fwd(q, k, v, causal, sm_scale)
+    return faulty
+
+
+def check_training_step(dev, dtype="float32"):
+    """One ShardedTrainer step on the card (kernels) and on the CPU (plain
+    versions) from the same init(seed) and batch, the graph in ``dtype``:
+    outputs, every updated weight and every momentum must agree.  In bf16
+    a control follows: the card's step again with the flash forward's last
+    key tile dropped must fail the same gates."""
+    import torch
+
+    from mxnet_tpu_torch.ops.fused import attention_kernels as ak
+
+    cfg = dict(STEP_CHECK, dtype=dtype)
+    tol = STEP_TOL if dtype == "float32" else BF16_STEP_TOL
+    host = _host_batch(cfg, STEP_BATCH, SEED + 4)
+
+    def step(device):
         t0 = time.perf_counter()
-        tr = _trainer(STEP_CHECK, STEP_BATCH, device)
+        tr = _trainer(cfg, STEP_BATCH, device)
         params, moms, aux = tr.init(seed=SEED)
         outs, params, moms, _ = tr.step_fn()(params, moms, aux,
                                              tr.place_batch(host))
@@ -1347,28 +1651,45 @@ def check_training_step(dev):
             torch.cuda.synchronize()
         print("  step on %s: %.1f s (init included)"
               % (device, time.perf_counter() - t0))
-        res.append(({"softmax_output": outs[0]}, params, moms))
-    worst = {}
-    for kind, got, want in zip(("output", "weight", "momentum"), res[0],
-                               res[1]):
-        for n in want:
-            g, w = got[n].cpu().double(), want[n].double()
-            rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)
-                   ).item()
-            if not np.isfinite(rel) or rel > STEP_TOL:
-                raise SmokeError("training step: %s %s differs between "
-                                 "card and CPU by %.3e of its largest value"
-                                 % (kind, n, rel))
-            worst[kind] = max(worst.get(kind, 0.0), rel)
-    print("  card vs CPU, one step of %d layers d%d T%d: max |err| / max "
-          "|CPU| outputs %.3e, weights %.3e, momenta %.3e (tolerance %.0e)"
-          % (STEP_CHECK["num_layers"], STEP_CHECK["num_embed"],
-             STEP_CHECK["seq_len"], worst["output"], worst["weight"],
-             worst["momentum"], STEP_TOL))
+        return {"softmax_output": outs[0]}, params, moms
+
+    card, cpu = step(dev), step("cpu")
+    worst, bad = _step_errors(card, cpu, dtype)
+    del card
+    print("  card vs CPU, one %s step of %d layers d%d T%d: outputs %.3e "
+          "(%s), weights %.3e (%s), momenta %.3e (%s); tolerance %.0e of "
+          "each tensor's largest value%s"
+          % ((dtype, cfg["num_layers"], cfg["num_embed"], cfg["seq_len"])
+             + worst["output"] + worst["weight"] + worst["momentum"]
+             + (tol, "" if dtype == "float32" else
+                ", outputs as max |log p card - log p CPU| <= %.4f"
+                % BF16_LOGP_TOL)))
+    if bad:
+        raise SmokeError("training step (%s) differs between card and CPU: "
+                         "%s" % (dtype, "; ".join(bad)))
+    if dtype == "float32":
+        return
+    fwd = ak.fused_flash_fwd
+    ak.fused_flash_fwd = _drop_last_key_tile(fwd)
+    try:
+        faulty = step(dev)
+    finally:
+        ak.fused_flash_fwd = fwd
+    worst, bad = _step_errors(faulty, cpu, dtype)
+    print("  control, the card's %s step with the last key tile dropped: "
+          "outputs %.3e (%s), weights %.3e (%s), momenta %.3e (%s); %d "
+          "tensors over their gates" % ((dtype,) + worst["output"]
+                                        + worst["weight"]
+                                        + worst["momentum"] + (len(bad),)))
+    if not bad:
+        raise SmokeError("the %s step's gates pass a flash forward that "
+                         "drops its last key tile" % dtype)
 
 
 _OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel", "flash_bwd_dkdv_simt_kernel",
+                "flash_bwd_dq_kernel", "flash_fwd_bf16_kernel",
+                "flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                "flash_bwd_dkdv_simt_kernel",
                 "flash_bwd_dq_simt_kernel", "layer_norm_op_kernel",
                 "sgd_mom_multi_kernel", "conv1x1_dgrad_sm90_kernel",
                 "conv1x1_dgrad_kernel", "mm_epilogue_kernel",
@@ -1387,10 +1708,18 @@ def _kernel_group(name):
     return "other PyTorch"
 
 
+# The flash kernels of each dtype: (forward, dK/dV, dQ).
+FLASH_KERNELS = {
+    "float32": ("flash_prefill", "flash_bwd_dkdv", "flash_bwd_dq"),
+    "bfloat16": ("flash_fwd_bf16", "flash_bwd_dkdv_bf16",
+                 "flash_bwd_dq_bf16")}
+
+
 def run_training(dev, cfg, card):
-    """The training drive: the bench configuration at full depth, one
-    warm-up step and DRIVE_STEPS timed steps on one seeded batch, through
-    get_symbol -> ShardedTrainer -> init -> place_batch -> step_fn."""
+    """The training drive: the bench configuration (``cfg``, its ``dtype``
+    included), one warm-up step and DRIVE_STEPS timed steps on one seeded
+    batch, through get_symbol -> ShardedTrainer -> init -> place_batch ->
+    step_fn."""
     import torch
 
     from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1429,16 +1758,25 @@ def run_training(dev, cfg, card):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SmokeError("training losses %s: not finite and falling"
                          % losses)
-    # the backward pair runs once a layer a step, on the tensor cores (the
-    # CUDA-core pair serves only D = 128)
+    # the flash kernels of the graph's dtype run once a layer a step, those
+    # of the other dtype and the CUDA-core pair (D = 128 only) never; the
+    # LayerNorm op and the momentum step run every step
     steps, layers = 1 + DRIVE_STEPS, cfg["num_layers"]
-    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+    dtype = cfg.get("dtype", "float32")
+    for name in FLASH_KERNELS[dtype]:
         if counts.get(name, 0) != layers * steps:
             raise SmokeError("%s launched %d times in %d steps of %d layers"
                              % (name, counts.get(name, 0), steps, layers))
-    for name in ("flash_bwd_dkdv_simt", "flash_bwd_dq_simt"):
+    other = [n for d_, names in FLASH_KERNELS.items() if d_ != dtype
+             for n in names]
+    for name in other + ["flash_bwd_dkdv_simt", "flash_bwd_dq_simt"]:
         if counts.get(name, 0):
-            raise SmokeError("%s launched on the training path" % name)
+            raise SmokeError("%s launched on the %s training path"
+                             % (name, dtype))
+    for name in ("layer_norm_op", "sgd_mom_multi"):
+        if counts.get(name, 0) < steps:
+            raise SmokeError("%s launched %d times in %d steps"
+                             % (name, counts.get(name, 0), steps))
     p50 = float(np.percentile(step_ms, 50))
     per_step = {n: c / steps for n, c in counts.items() if c}
     print("  [%s] step ms p50 %.1f (%s), tokens/s %.0f, peak memory %.2f "
@@ -1861,6 +2199,7 @@ def main():
     print("== phase 3: kernels against their plain versions")
     lane_rows = check_kernels(dev, CFG)
     train_rows = check_training_kernels(dev, CFG)
+    train_rows += check_bf16_flash(dev, CFG)
     gemm_rows = check_gemm_kernels(dev)
     for shape, rs in (("the lane's shape", lane_rows),
                       ("the LM training step's shape", train_rows),
@@ -1883,13 +2222,16 @@ def main():
     counts = run_slice(dev, CFG, PROMPTS, NEW_TOKENS, NUM_BLOCKS,
                        PREFILL_BUCKETS, DECODE_BUCKETS, CHECKED, card)
 
-    print("== phase 5: one training step, card against CPU")
-    check_training_step(dev)
+    print("== phase 5: one training step, card against CPU, fp32 and bf16")
+    for dtype in ("float32", "bfloat16"):
+        check_training_step(dev, dtype)
 
-    print("== phase 6: training, %d layers, d%d, batch %d, T %d"
-          % (CFG["num_layers"], CFG["num_embed"], TRAIN_BATCH,
-             CFG["seq_len"]))
-    train_counts = run_training(dev, CFG, card)
+    path_counts = [counts]
+    for dtype in ("bfloat16", "float32"):
+        print("== phase 6: training, %d layers, d%d, batch %d, T %d, %s"
+              % (CFG["num_layers"], CFG["num_embed"], TRAIN_BATCH,
+                 CFG["seq_len"], dtype))
+        path_counts.append(run_training(dev, dict(CFG, dtype=dtype), card))
 
     print("== phase 7: one ResNet-50 step, card against CPU")
     os.environ["MXTPU_CONV1X1"] = "pallas"
@@ -1898,7 +2240,6 @@ def main():
     print("== phase 8: training ResNet-50, %d px, batch %d, %s, %s, stem %s"
           % (RESNET_IMAGE, RESNET_BATCH, RESNET["dtype"], RESNET["layout"],
              RESNET["stem"]))
-    path_counts = [counts, train_counts]
     for mode in ("pallas", ""):
         path_counts.append(run_resnet_training(dev, card, mode))
 

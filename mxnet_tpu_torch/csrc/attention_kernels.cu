@@ -203,20 +203,6 @@ __device__ __forceinline__ void wgmma_3xtf32_ss(float* d, unsigned long long a_b
   wgmma_tf32_ss<N>(d, a_big, b_big);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 template <int D>
 struct Fwd {
   static constexpr int kBK = D == 128 ? 32 : 64;   // keys of a tile: S is 64 x kBK
@@ -284,7 +270,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       mxtpu::cp_async16(kraw + r * F::kLdRaw + col, k + at, ok);
       mxtpu::cp_async16(vraw + r * F::kLdRaw + col, v + at, ok);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    mxtpu::cp_async_commit();
   };
   load_raw(0);
 
@@ -309,7 +295,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m0 = mxtpu::kNegInf, m1 = mxtpu::kNegInf, l0 = 0.f, l1 = 0.f;
 
   for (int it = 0; it < ntiles; ++it) {
-    asm volatile("cp.async.wait_group 0;\n" ::);
+    mxtpu::cp_async_wait_all();
     __syncthreads();  // the raw tile has landed; the last tile's products are done
     // split K as it is and V transposed with its keys permuted, a 16-byte
     // unit a thread (for V: 4 keys of one dim, gathered from 4 raw rows)
@@ -350,13 +336,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
-    wgmma_fence();
+    mxtpu::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
       const int off = (kk / 4) * BK * 128 + (kk % 4) * 32;
       wgmma_3xtf32<BK>(s, qb[kk], qsm[kk], tile_desc(kb + off), tile_desc(ks + off));
     }
-    wgmma_commit_wait();
+    mxtpu::wgmma_commit_wait();
 
     // scale, mask (only the tiles that cross the diagonal or the end of
     // the keys), and the online softmax over the tile
@@ -378,10 +364,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
     // the four threads of a row are the four lanes of a quad
-    mx0 = fmaxf(mx0, __shfl_xor_sync(mxtpu::kFullMask, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(mxtpu::kFullMask, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(mxtpu::kFullMask, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(mxtpu::kFullMask, mx1, 2));
+    mx0 = mxtpu::quad_max(mx0);
+    mx1 = mxtpu::quad_max(mx1);
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
     const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
     float sum0 = 0.f, sum1 = 0.f;
@@ -431,7 +415,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < F::kNO / 2; ++i) pv[n][i] = 0.f;
     }
-    wgmma_fence();
+    mxtpu::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kSB; ++j)
 #pragma unroll
@@ -441,7 +425,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if constexpr (kFreshPV) d = pv[n];
         wgmma_3xtf32<F::kNO>(d, pb[j], ps[j], tile_desc(vb + off), tile_desc(vs + off));
       }
-    wgmma_commit_wait();
+    mxtpu::wgmma_commit_wait();
     if constexpr (kFreshPV) {
 #pragma unroll
       for (int n = 0; n < kChunks; ++n)
@@ -455,10 +439,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  l0 += __shfl_xor_sync(mxtpu::kFullMask, l0, 1);
-  l0 += __shfl_xor_sync(mxtpu::kFullMask, l0, 2);
-  l1 += __shfl_xor_sync(mxtpu::kFullMask, l1, 1);
-  l1 += __shfl_xor_sync(mxtpu::kFullMask, l1, 2);
+  l0 = mxtpu::quad_sum(l0);
+  l1 = mxtpu::quad_sum(l1);
 #pragma unroll
   for (int n = 0; n < kChunks; ++n)
 #pragma unroll
@@ -819,7 +801,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       mxtpu::cp_async16(qraw + r * B::kLdRaw + col, q + at, ok);
       mxtpu::cp_async16(draw + r * B::kLdRaw + col, dout + at, ok);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    mxtpu::cp_async_commit();
   };
   if (ntiles > 0) load_raw(0);
   split_resident<D>(v + kbase, k0, tk_len, res, 2 * B::kRes, tid);
@@ -832,7 +814,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
 
   for (int it = 0; it < ntiles; ++it) {
-    asm volatile("cp.async.wait_group 0;\n" ::);
+    mxtpu::cp_async_wait_all();
     __syncthreads();  // the raw tile has landed; the last tile's products are done
     split_rows<D, BS>(qraw, qrow, qrow + B::kStr, tid, kBwdTcThreads);
     split_rows<D, BS>(draw, drow, drow + B::kStr, tid, kBwdTcThreads);
@@ -858,7 +840,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < BS / 2; ++i) s[i] = dp[i] = 0.f;
     wait_turn(wg, mine);
     if (mine) {
-      wgmma_fence();
+      mxtpu::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
         const int oa = (kk / 4) * 64 * 128 + (kk % 4) * 32;
@@ -868,11 +850,11 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         wgmma_3xtf32_ss<BS>(dp, tile_desc(vb + oa), tile_desc(vb + B::kRes + oa),
                             tile_desc(drow + ob), tile_desc(drow + B::kStr + ob));
       }
-      wgmma_commit();
+      mxtpu::wgmma_commit();
     }
     pass_turn(wg, ones);
     if (!mine) continue;
-    wgmma_wait();
+    mxtpu::wgmma_wait();
 
     // P^T and dS^T; (row g | g+8, query column 8j + 2c | +1) in block j
     const bool masked = causal && q0 < kw + 63;
@@ -894,24 +876,24 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     split_acc<BS>(s, pb, ps);
     float part[D / 2];
     zero<D / 2>(part);
-    wgmma_fence();
+    mxtpu::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kSB; ++j) {
       const int off = (j / 4) * D * 128 + (j % 4) * 32;
       wgmma_3xtf32<D>(part, pb[j], ps[j], tile_desc(dcol + off), tile_desc(dcol + B::kStr + off));
     }
-    wgmma_commit_wait();
+    mxtpu::wgmma_commit_wait();
     add_tile<D / 2>(dva, part);
     unsigned db[kSB][4], ds[kSB][4];
     split_acc<BS>(dp, db, ds);
     zero<D / 2>(part);
-    wgmma_fence();
+    mxtpu::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kSB; ++j) {
       const int off = (j / 4) * D * 128 + (j % 4) * 32;
       wgmma_3xtf32<D>(part, db[j], ds[j], tile_desc(qcol + off), tile_desc(qcol + B::kStr + off));
     }
-    wgmma_commit_wait();
+    mxtpu::wgmma_commit_wait();
     add_tile<D / 2>(dka, part);
   }
 
@@ -988,7 +970,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       mxtpu::cp_async16(kraw + r * B::kLdRaw + col, k + at, ok);
       mxtpu::cp_async16(vraw + r * B::kLdRaw + col, v + at, ok);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    mxtpu::cp_async_commit();
   };
   load_raw(0);
   split_resident<D>(dout + qbase, q0, t_len, res, 2 * B::kRes, tid);
@@ -1001,7 +983,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
 
   for (int it = 0; it < ntiles; ++it) {
-    asm volatile("cp.async.wait_group 0;\n" ::);
+    mxtpu::cp_async_wait_all();
     __syncthreads();  // the raw tile has landed; the last tile's products are done
     split_rows<D, BS>(kraw, krow, krow + B::kStr, tid, kBwdTcThreads);
     split_rows<D, BS>(vraw, vrow, vrow + B::kStr, tid, kBwdTcThreads);
@@ -1021,7 +1003,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < BS / 2; ++i) s[i] = dp[i] = 0.f;
     wait_turn(wg, mine);
     if (mine) {
-      wgmma_fence();
+      mxtpu::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
         const int oa = (kk / 4) * 64 * 128 + (kk % 4) * 32;
@@ -1031,11 +1013,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         wgmma_3xtf32_ss<BS>(dp, tile_desc(dob + oa), tile_desc(dob + B::kRes + oa),
                             tile_desc(vrow + ob), tile_desc(vrow + B::kStr + ob));
       }
-      wgmma_commit();
+      mxtpu::wgmma_commit();
     }
     pass_turn(wg, ones);
     if (!mine) continue;
-    wgmma_wait();
+    mxtpu::wgmma_wait();
 
     // dS; (row g | g+8, key 8j + 2c | +1) in block j
     const bool masked = k0 + BS > tk_len || (causal && k0 + BS - 1 > qg);
@@ -1056,13 +1038,13 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // (add_tile)
     float part[D / 2];
     zero<D / 2>(part);
-    wgmma_fence();
+    mxtpu::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kSB; ++j) {
       const int off = (j / 4) * D * 128 + (j % 4) * 32;
       wgmma_3xtf32<D>(part, db[j], ds[j], tile_desc(kcol + off), tile_desc(kcol + B::kStr + off));
     }
-    wgmma_commit_wait();
+    mxtpu::wgmma_commit_wait();
     add_tile<D / 2>(dqa, part);
   }
 

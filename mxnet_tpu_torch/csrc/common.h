@@ -8,6 +8,7 @@
 // refused launch.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define MXTPU_API extern "C" __attribute__((visibility("default")))
@@ -30,6 +31,50 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* src, bool pre
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(pred ? 16 : 0));
+}
+
+// Close the group of cp.async copies issued so far; wait until no group
+// is pending.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// wgmma (sm_90a): order this warpgroup's register and shared-memory
+// accesses before the asynchronous products; close the group of products
+// issued so far; wait until every group is done.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  wgmma_commit();
+  wgmma_wait();
+}
+
+// Two fp32 values rounded to nearest even as one bf16 pair (`lo` in the low
+// half): an A fragment register of a 16-bit product, or a paired store.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+// Max and sum over the four lanes of a quad: the four threads that hold one
+// row of an mma/wgmma accumulator.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFullMask, x, 1);
+  return x + __shfl_xor_sync(kFullMask, x, 2);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -95,9 +95,6 @@ __device__ __forceinline__ bf16 from_float<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));

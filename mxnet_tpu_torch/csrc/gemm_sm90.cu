@@ -152,11 +152,6 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, unsigned long long da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
 template <int NB>
 __global__ void __launch_bounds__(kThreads, 1)
     conv1x1_dgrad_sm90_kernel(const __grid_constant__ CUtensorMap map_dy,

@@ -3,7 +3,8 @@ serving path.
 
 :func:`get_symbol` is the JAX package's ``get_symbol`` (the graph that
 ``bench.py`` trains through ``ShardedTrainer``), for a dense FFN, a
-softmax head, no rematerialization and fp32; its other values raise.
+softmax head and no rematerialization, in fp32 or (the bench's own
+configuration) bf16; its other values raise.
 
 The rest is the counterpart of the functional half of
 ``mxnet_tpu/models/transformer.py`` (``lm_config``, ``init_lm_params``,
@@ -54,8 +55,11 @@ def get_symbol(num_classes=32000, seq_len=1024, num_embed=512, num_heads=8,
     ``LayerNorm`` → ``MultiHeadAttention`` → residual, ``LayerNorm`` →
     FFN (4x, tanh GELU) → residual; a final ``LayerNorm``, the vocab
     projection ``pred`` and one ``SoftmaxOutput`` head named ``softmax``.
-    Parameter names and shapes are the JAX package's."""
-    unported = {"dropout": dropout > 0, "dtype": dtype != "float32",
+    Parameter names and shapes are the JAX package's.  ``dtype`` other
+    than fp32 casts the activations after the positional add and the
+    ``pred`` logits back to fp32 before the head, as the JAX graph does:
+    the parameters stay fp32 and each op casts them at use."""
+    unported = {"dropout": dropout > 0,
                 "head": head != "softmax", "remat": remat != "none",
                 "ffn": ffn != "dense",
                 "context_parallel_axis": bool(context_parallel_axis)}
@@ -68,6 +72,8 @@ def get_symbol(num_classes=32000, seq_len=1024, num_embed=512, num_heads=8,
                       name="embed")
     pos = sym.Variable("pos_embed_weight", shape=(1, seq_len, num_embed))
     x = sym.broadcast_add(x, pos)
+    if dtype != "float32":
+        x = sym.Cast(x, dtype=dtype)
     for i in range(num_layers):
         h = sym.LayerNorm(x, name="l%d_ln1" % i)
         h = sym.MultiHeadAttention(h, num_heads=num_heads, causal=causal,
@@ -84,6 +90,8 @@ def get_symbol(num_classes=32000, seq_len=1024, num_embed=512, num_heads=8,
     pred = sym.Reshape(x, shape=(-1, num_embed))
     label = sym.Reshape(sym.Variable("softmax_label"), shape=(-1,))
     pred = sym.FullyConnected(pred, num_hidden=num_classes, name="pred")
+    if dtype != "float32":
+        pred = sym.Cast(pred, dtype="float32")
     return sym.SoftmaxOutput(data=pred, label=label, name="softmax")
 
 

@@ -6,10 +6,10 @@ Counterpart of ``mxnet_tpu/ops/attention.py``: the generation lane's
 ``stable_causal_attention`` and ``paged_decode_attention``; the training
 path's ``flash_attention`` (a ``torch.autograd.Function`` whose forward is
 the flash kernel with its log-sum-exp and whose backward is the dK/dV
-kernel, then the dQ kernel); and the registry ops ``LayerNorm`` and
-``MultiHeadAttention``.  The public functions run the CUDA kernels of
-:mod:`.fused` for CUDA tensors and the plain versions below for CPU
-tensors.
+kernel, then the dQ kernel, in fp32 or bf16); and the registry ops
+``LayerNorm`` and ``MultiHeadAttention``.  The public functions run the
+CUDA kernels of :mod:`.fused` for CUDA tensors and the plain versions below
+for CPU tensors.
 
 The training path's plain versions (:func:`flash_fwd_plain`,
 :func:`flash_bwd_plain`) are the textbook spelling with ``torch.matmul``:
@@ -135,11 +135,23 @@ def paged_decode_attention(q, k_step, v_step, k_pages, v_pages,
 # ----------------------------------------------------------------------
 
 
+# The dtypes the plain versions compute in as they come; any other (bf16,
+# fp16) is upcast to fp32 and rounded back where the kernels round.
+_WIDE = (torch.float32, torch.float64)
+
+
+def _up(x):
+    """``x`` itself in fp32 or float64, else upcast to fp32 (a 16-bit
+    operand of a product with fp32 sums, as the kernels take it)."""
+    return x if x.dtype in _WIDE else x.float()
+
+
 def _flash_scores(q, k, causal, scale):
-    """fp32 ``[B, H, T, Tk]`` scaled scores; under ``causal`` key ``j`` is
-    masked from query ``i`` when ``j > i`` (the JAX kernel's mask, with
-    no offset when ``Tk != T``)."""
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    """``[B, H, T, Tk]`` scaled scores, fp32 for 16-bit operands (upcast
+    before the product) and in the operands' own dtype otherwise; under
+    ``causal`` key ``j`` is masked from query ``i`` when ``j > i`` (the JAX
+    kernel's mask, with no offset when ``Tk != T``)."""
+    s = torch.matmul(_up(q), _up(k).transpose(-1, -2)) * scale
     if causal:
         tq, tk = q.shape[2], k.shape[2]
         above = (torch.arange(tk, device=q.device)[None, :]
@@ -148,33 +160,58 @@ def _flash_scores(q, k, causal, scale):
     return s
 
 
+def _rounded(x, dtype):
+    """``x`` rounded to a 16-bit ``dtype`` and back to fp32 (``x`` itself
+    for fp32 and float64): where the kernels feed a product a bf16
+    operand."""
+    return x if dtype in _WIDE else x.to(dtype).float()
+
+
 def flash_fwd_plain(q, k, v, causal=True, sm_scale=None):
     """Exact softmax attention → ``(o, lse)``: ``lse [B, H, T]`` is
     ``m + log(l)`` over the scaled scores, as the JAX package's
-    ``_attention_fwd_ref(..., return_lse=True)``."""
+    ``_attention_fwd_ref(..., return_lse=True)``.  On bf16 inputs it
+    rounds where the Pallas kernel does: the scores and every sum are fp32,
+    ``p = exp(s - m)`` is rounded to bf16 before ``p v``, and ``o`` is
+    rounded once, after the division; ``lse`` is fp32.  fp32 and float64
+    inputs compute in their own dtype throughout."""
     s = _flash_scores(q, k, causal, _scale(q, sm_scale))
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    return torch.matmul(p / l, v), (m + torch.log(l))[..., 0]
+    lse = (m + torch.log(l))[..., 0]
+    if q.dtype in _WIDE:
+        return torch.matmul(p / l, v), lse
+    o = torch.matmul(_rounded(p, q.dtype), v.float()) / l
+    return o.to(q.dtype), lse
 
 
 def flash_bwd_plain(q, k, v, o, lse, do, causal=True, sm_scale=None):
     """``(dq, dk, dv)`` from the forward's ``lse``: ``p = exp(s - lse)``,
     ``ds = p * (dp - delta) * scale`` with ``delta = rowsum(do * o)``, the
-    math of the JAX package's ``_bwd_p_ds``."""
+    math of the JAX package's ``_bwd_p_ds``.  On bf16 inputs the products
+    take bf16 operands with fp32 sums: ``p`` is rounded to bf16 before
+    ``p^T do`` and ``ds`` before ``ds k`` and ``ds^T q``; ``delta`` and
+    the softmax are fp32, and the gradients come out in the inputs'
+    dtype.  fp32 and float64 inputs compute in their own dtype
+    throughout."""
+    dtype = q.dtype
     scale = _scale(q, sm_scale)
+    qf, kf, vf, dof = _up(q), _up(k), _up(v), _up(do)
     p = torch.exp(_flash_scores(q, k, causal, scale) - lse[..., None])
-    dv = torch.matmul(p.transpose(-1, -2), do)
-    dp = torch.matmul(do, v.transpose(-1, -2))
-    delta = (do * o).sum(-1, keepdim=True)
-    ds = p * (dp - delta) * scale
-    return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv)
+    dv = torch.matmul(_rounded(p, dtype).transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    delta = (dof * _up(o)).sum(-1, keepdim=True)
+    ds = _rounded(p * (dp - delta) * scale, dtype)
+    return (torch.matmul(ds, kf).to(dtype),
+            torch.matmul(ds.transpose(-1, -2), qf).to(dtype), dv.to(dtype))
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: the flash kernel with its lse (saved, never recomputed).
-    Backward: the dK/dV kernel, then the dQ kernel.  Autograd runs the
+    Backward: the dK/dV kernel, then the dQ kernel.  The kernels are those
+    of the inputs' dtype (fp32 or bf16); ``do`` arrives in the output's
+    dtype and the gradients leave in the inputs'.  Autograd runs the
     backward on its own thread; the kernels launch on the device's current
     stream there, as everywhere."""
 
@@ -219,12 +256,11 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
           params={"axis": P("int", -1), "eps": P("float", 1e-5)})
 def _layer_norm(attrs, data, gamma, beta):
     """Layer norm over ``axis``: population variance, ``rsqrt``, affine
-    (the JAX op's spelling), with a gradient; fp32 only."""
+    (the JAX op's spelling), with a gradient.  fp32, bf16 or fp16 data with
+    fp32 math: ``y`` and the data's gradient in the data's dtype, gamma's
+    and beta's in theirs."""
     from .fused.norm_kernels import layer_norm_op
 
-    if data.dtype != torch.float32:
-        raise MXNetError("LayerNorm: the port's training path is fp32, got "
-                         "%s" % data.dtype)
     axis = attrs["axis"] % data.dim()
     if axis == data.dim() - 1:
         return layer_norm_op(data, gamma, beta, attrs["eps"])
@@ -250,7 +286,10 @@ def _mha_input_names(attrs):
 def _multi_head_attention(attrs, data, qkv_weight, out_weight,
                           qkv_bias=None, out_bias=None):
     """Self-attention on ``[B, T, C]``: fused QKV projection, flash
-    attention, output projection.  Ring attention over a mesh axis
+    attention, output projection.  Mixed precision as in the JAX op: the
+    (fp32) weights and biases are cast to the activations' dtype, so a bf16
+    graph projects in bf16 with fp32 master weights; fp16 computes in fp32
+    and casts back.  Ring attention over a mesh axis
     (``context_parallel_axis``) is a later slice and raises.
     ``interpret`` (the JAX package's Pallas interpret switch) changes
     nothing here."""
@@ -258,10 +297,18 @@ def _multi_head_attention(attrs, data, qkv_weight, out_weight,
         raise MXNetError("MultiHeadAttention: context_parallel_axis=%r "
                          "(ring attention) is not ported yet"
                          % attrs["context_parallel_axis"])
+    out_dtype = data.dtype
+    if data.dtype == torch.float16:
+        data = data.float()
+    dtype = data.dtype
+
+    def cast(w):
+        return None if w is None else w.to(dtype)
+
     b, t, c = data.shape
     h = attrs["num_heads"]
-    qkv = F.linear(data, qkv_weight, qkv_bias)
+    qkv = F.linear(data, cast(qkv_weight), cast(qkv_bias))
     qkv = qkv.reshape(b, t, 3, h, c // h).permute(2, 0, 3, 1, 4)
     out = flash_attention(qkv[0], qkv[1], qkv[2], causal=attrs["causal"])
     out = out.transpose(1, 2).reshape(b, t, c)
-    return F.linear(out, out_weight, out_bias)
+    return F.linear(out, cast(out_weight), cast(out_bias)).to(out_dtype)

@@ -7,18 +7,25 @@ Pallas flash forward and backward of ``mxnet_tpu/ops/attention.py``
 kernels are in ``csrc/attention_kernels.cu``; the plain versions, which a
 CPU tensor gets, are in :mod:`mxnet_tpu_torch.ops.attention`.
 
-The flash forward and, for D of 32 and 64, the backward's two passes run
-every product on the tensor cores in 3xTF32 (each fp32 operand split into
-two TF32 parts, three products); at D = 128 the backward runs on the CUDA
-cores (:func:`bwd_kernels`).  They reorder the softmax sums (online
-softmax over key tiles; the backward sums its gradients tile by tile), so
-they agree with the plain versions to rounding, not bitwise.  The paged
-decode kernel (fp32 or bf16 K/V, fp32 math and output) splits each
-sequence's live pages over :func:`decode_splits` blocks and merges their
-partial softmaxes in a fixed order, so it too sums in its own order, and
-two calls on the same inputs give the same bits.  ``chip_smoke.py`` prints
+On fp32 inputs the flash forward and, for D of 32 and 64, the backward's
+two passes run every product on the tensor cores in 3xTF32 (each fp32
+operand split into two TF32 parts, three products); at D = 128 the
+backward runs on the CUDA cores (:func:`bwd_kernels`).  They reorder the
+softmax sums (online softmax over key tiles; the backward sums its
+gradients tile by tile), so they agree with the plain versions to
+rounding, not bitwise.  The paged decode kernel (fp32 or bf16 K/V, fp32
+math and output) splits each sequence's live pages over
+:func:`decode_splits` blocks and merges their partial softmaxes in a fixed
+order, so it too sums in its own order, and two calls on the same inputs
+give the same bits.  ``chip_smoke.py`` prints
 the backward's errors against the plain version and, beside the plain
 version's own and SDPA's, against a float64 reference.
+
+On bf16 inputs (the bench LM's training dtype) the flash forward and the
+backward's two passes are the kernels of ``csrc/flash_bf16.cu``: one bf16
+wgmma per product with fp32 sums, the softmax in fp32, ``p`` and ``ds``
+rounded to bf16 where the Pallas kernels round them; ``o``, ``dq``, ``dk``
+and ``dv`` come out in bf16, ``lse`` in fp32.
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ from ...base import MXNetError
 from .. import attention as _att
 from .._build import Kernel, device_kind, require
 
-__all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DKDV_SIMT", "FLASH_BWD_DQ",
-           "FLASH_BWD_DQ_SIMT", "FLASH_FWD_SIMT", "FLASH_PREFILL",
+__all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DKDV_BF16", "FLASH_BWD_DKDV_SIMT",
+           "FLASH_BWD_DQ", "FLASH_BWD_DQ_BF16", "FLASH_BWD_DQ_SIMT",
+           "FLASH_FWD_BF16", "FLASH_FWD_SIMT", "FLASH_PREFILL",
            "PAGED_DECODE", "PAGED_DECODE_V1", "bwd_kernels", "decode_splits",
            "fused_flash_bwd", "fused_flash_fwd",
            "fused_paged_decode_attention", "fused_prefill_attention"]
@@ -66,6 +74,19 @@ FLASH_BWD_DKDV_SIMT = Kernel(
 FLASH_BWD_DQ_SIMT = Kernel(
     "flash_bwd_dq_simt", "attention_kernels", "mxtpu_flash_bwd_dq_simt",
     [_P] * 7 + [_I] * 6 + [_F])
+# The bf16 flash forward and backward pair (csrc/flash_bf16.cu), with the
+# fp32 entries' arguments; o, dq, dk, dv bf16, lse and delta fp32.
+FLASH_FWD_BF16 = Kernel(
+    "flash_fwd_bf16", "flash_bf16", "mxtpu_flash_fwd_bf16",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F])
+FLASH_BWD_DKDV_BF16 = Kernel(
+    "flash_bwd_dkdv_bf16", "flash_bf16", "mxtpu_flash_bwd_dkdv_bf16",
+    [_P] * 8 + [_I] * 6 + [_F])
+FLASH_BWD_DQ_BF16 = Kernel(
+    "flash_bwd_dq_bf16", "flash_bf16", "mxtpu_flash_bwd_dq_bf16",
+    [_P] * 7 + [_I] * 6 + [_F])
+# The dtypes of the flash training kernels.
+_FLASH_DTYPES = (torch.float32, torch.bfloat16)
 PAGED_DECODE = Kernel(
     "paged_decode", "attention_kernels", "mxtpu_paged_decode",
     [_P] * 10 + [_I] * 7 + [_F])
@@ -103,42 +124,54 @@ def fused_prefill_attention(q, k, v, sm_scale=None):
     return out
 
 
-def _check_flash(name, q, k, v, same_length=False):
+def _check_flash(name, q, k, v, same_length=False,
+                 dtypes=(torch.float32,)):
+    """Raise unless q, k, v are contiguous ``[B, H, T|Tk, D]`` tensors of
+    one dtype in ``dtypes``; returns the dtype."""
     if q.dim() != 4 or q.shape[-1] not in _HEAD_DIMS:
         raise MXNetError("%s: q must be [B, H, T, D] with D in %s, got %s"
                          % (name, _HEAD_DIMS, tuple(q.shape)))
+    if q.dtype not in dtypes:
+        raise MXNetError("%s: q, k, v must be %s, got %s"
+                         % (name, " or ".join(str(d)[6:] for d in dtypes),
+                            q.dtype))
     kshape = q.shape if same_length else q.shape[:2] + (k.shape[2],) \
         + q.shape[3:]
-    require(name, q, torch.float32, align=16)
+    require(name, q, q.dtype, align=16)
     for t in (k, v):
-        require(name, t, torch.float32, kshape, align=16)
+        require(name, t, q.dtype, kshape, align=16)
+    return q.dtype
 
 
 def fused_flash_fwd(q, k, v, causal=True, sm_scale=None):
     """Flash attention forward ``q [B, H, T, D]``, ``k``/``v`` ``[B, H,
-    Tk, D]`` → ``(o [B, H, T, D], lse [B, H, T])``, fp32; ``lse`` is the
-    natural log of each row's softmax denominator over the scaled scores
-    (the backward's input).  ``causal`` masks key ``j`` from query ``i``
-    when ``j > i``.
+    Tk, D]`` → ``(o [B, H, T, D], lse [B, H, T])``, ``o`` in the inputs'
+    dtype (fp32 or bf16), ``lse`` fp32; ``lse`` is the natural log of each
+    row's softmax denominator over the scaled scores (the backward's
+    input).  ``causal`` masks key ``j`` from query ``i`` when ``j > i``.
 
     CPU tensors: :func:`~mxnet_tpu_torch.ops.attention.flash_fwd_plain`.
-    CUDA tensors: the flash kernel (contiguous fp32, D in 32/64/128)."""
+    CUDA tensors: the flash kernel of their dtype (contiguous, all of one
+    dtype, D in 32/64/128)."""
     if device_kind((q, k, v)) == "cpu":
         return _att.flash_fwd_plain(q, k, v, causal, sm_scale)
-    _check_flash("flash_prefill", q, k, v)
+    dtype = _check_flash("flash_prefill", q, k, v, dtypes=_FLASH_DTYPES)
     bsz, heads, t_len, dim = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    FLASH_PREFILL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), lse.data_ptr(), bsz, heads, t_len,
-                         k.shape[2], dim, int(bool(causal)),
-                         _att._scale(q, sm_scale))
+    kernel = FLASH_PREFILL if dtype == torch.float32 else FLASH_FWD_BF16
+    kernel.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), lse.data_ptr(), bsz, heads, t_len,
+                  k.shape[2], dim, int(bool(causal)), _att._scale(q, sm_scale))
     return out, lse
 
 
-def bwd_kernels(head_dim):
-    """The backward's ``(dK/dV, dQ)`` kernels for ``head_dim``: the
-    tensor-core pair for 32 and 64, the CUDA-core pair for 128."""
+def bwd_kernels(head_dim, dtype=torch.float32):
+    """The backward's ``(dK/dV, dQ)`` kernels for ``head_dim`` and the
+    inputs' ``dtype``: on bf16 the bf16 pair; on fp32 the tensor-core pair
+    for 32 and 64, the CUDA-core pair for 128."""
+    if dtype == torch.bfloat16:
+        return FLASH_BWD_DKDV_BF16, FLASH_BWD_DQ_BF16
     if head_dim == 128:
         return FLASH_BWD_DKDV_SIMT, FLASH_BWD_DQ_SIMT
     return FLASH_BWD_DKDV, FLASH_BWD_DQ
@@ -149,27 +182,30 @@ def fused_flash_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None):
     inputs, its output ``o``, its ``lse`` and the output gradient ``do``.
 
     CPU tensors: :func:`~mxnet_tpu_torch.ops.attention.flash_bwd_plain`.
-    CUDA tensors: ``delta = rowsum(do * o)`` as a torch expression (the
-    JAX wrapper also computes it outside its kernels), then the dK/dV
-    kernel and the dQ kernel of :func:`bwd_kernels`, each writing only its
-    own rows (no atomics: the same inputs give the same bits)."""
+    CUDA tensors: ``delta = rowsum(do * o)`` in fp32 as a torch expression
+    (the JAX wrapper also computes it outside its kernels, in fp32 from
+    bf16 tensors), then the dK/dV kernel and the dQ kernel of
+    :func:`bwd_kernels`, each writing only its own rows (no atomics: the
+    same inputs give the same bits).  ``q``, ``k``, ``v``, ``o`` and
+    ``do`` share one dtype, fp32 or bf16, which the gradients take;
+    ``lse`` is fp32."""
     if device_kind((q, k, v, o, lse, do)) == "cpu":
         return _att.flash_bwd_plain(q, k, v, o, lse, do, causal, sm_scale)
-    _check_flash("flash_bwd", q, k, v)
+    dtype = _check_flash("flash_bwd", q, k, v, dtypes=_FLASH_DTYPES)
     for t in (o, do):
-        require("flash_bwd", t, torch.float32, q.shape, align=16)
+        require("flash_bwd", t, dtype, q.shape, align=16)
     require("flash_bwd", lse, torch.float32, q.shape[:3])
     bsz, heads, t_len, dim = q.shape
     tk_len = k.shape[2]
     scale = _att._scale(q, sm_scale)
-    delta = (do * o).sum(-1)
+    delta = (do.float() * o.float()).sum(-1)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     dims = (bsz, heads, t_len, tk_len, dim, int(bool(causal)), scale)
-    dkdv_kernel, dq_kernel = bwd_kernels(dim)
+    dkdv_kernel, dq_kernel = bwd_kernels(dim, dtype)
     dkdv_kernel.launch(q.device, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
     dq_kernel.launch(q.device, *ptrs, dq.data_ptr(), *dims)
     return dq, dk, dv

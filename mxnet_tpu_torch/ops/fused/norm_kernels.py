@@ -144,17 +144,20 @@ def fused_layer_norm_op(x, gamma, beta, eps=_LN_EPS):
 
 def layer_norm_op_backward(dy, x, gamma, mean, rstd):
     """``(dx, dgamma, dbeta)`` of the ``LayerNorm`` op from the forward's
-    row statistics (plain PyTorch on either device)."""
+    row statistics (plain PyTorch on either device).  The math is fp32
+    whatever the dtypes, as autodiff of the JAX op gives it: ``dx`` comes
+    out in ``x``'s dtype, ``dgamma`` and ``dbeta`` in ``gamma``'s."""
     cols = x.shape[-1]
+    dy, xf, g = dy.float(), x.float(), gamma.float()
     mean = mean.reshape(x.shape[:-1] + (1,))
     rstd = rstd.reshape(x.shape[:-1] + (1,))
-    xhat = (x - mean) * rstd
-    dxhat = dy * gamma
+    xhat = (xf - mean) * rstd
+    dxhat = dy * g
     dgamma = (dy * xhat).reshape(-1, cols).sum(0)
     dbeta = dy.reshape(-1, cols).sum(0)
     dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
                  - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    return dx, dgamma, dbeta
+    return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 
 class _LayerNormOp(torch.autograd.Function):
@@ -172,8 +175,8 @@ class _LayerNormOp(torch.autograd.Function):
 
 
 def layer_norm_op(x, gamma, beta, eps=_LN_EPS):
-    """Differentiable ``LayerNorm`` over the last axis of ``x`` (the
-    training path is fp32: the registry op refuses other dtypes).
+    """Differentiable ``LayerNorm`` over the last axis of ``x`` (fp32,
+    bf16 or fp16 data, fp32 ``gamma``/``beta``).
     Meta tensors (shape inference) give an empty output of the shape."""
     if x.is_meta:
         return torch.empty_like(x)

@@ -120,6 +120,14 @@ class ShardedTrainer:
             raise MXNetError("ShardedTrainer needs data_shapes")
         self.symbol = symbol
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # 16-bit projections (a bf16 graph) sum in fp32 throughout, as
+            # the JAX package's do: cuBLAS may not reduce split-K partials
+            # in bf16 or fp16
+            torch.backends.cuda.matmul \
+                .allow_bf16_reduced_precision_reduction = False
+            torch.backends.cuda.matmul \
+                .allow_fp16_reduced_precision_reduction = False
         shapes = dict(data_shapes)
         shapes.update(label_shapes or {})
         type_dict = dict(type_dict or {})

@@ -10,7 +10,11 @@ Pallas dk/dv and dq kernels in interpret mode.  Both causal values, T 64,
 a ragged T 72, Tk != T, a scale other than 1/sqrt(D), and the head dims
 32 and 128 beside 16.  Tolerances as in
 ``tests/test_attention.py``: 2e-5 for the forward, 1e-4 for gradients
-(the frameworks sum in different orders).
+(the frameworks sum in different orders).  On bf16 inputs the plain
+versions against ``_flash_fwd_pallas`` and ``_flash_bwd_pallas`` in
+interpret mode, in bf16: o, dq, dk, dv bf16 within the bf16 class of the
+JAX parity harness (``parity._TOL``), lse fp32 within the fp32 class;
+on float64 inputs the plain versions against einsum attention in float64.
 """
 
 import numpy as np
@@ -21,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from mxnet_tpu.ops import attention as jatt
+from mxnet_tpu.ops.fused.parity import _TOL
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention as patt
 from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -108,6 +113,72 @@ def test_flash_gradients_match_pallas_backward_head_dims(d):
     for g, wnt in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=GRAD_TOL,
                                    atol=GRAD_TOL)
+
+
+def _float64_attention(q, k, v, causal, scale):
+    """Softmax attention spelled with einsum and ``torch.softmax``, in the
+    inputs' dtype (the causal mask without offset, as the kernels')."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool)
+                          .triu(1), float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v)
+
+
+def test_bf16_plain_versions_match_pallas_in_bf16():
+    """The bench's dtype: causal, ragged T with another scale, and Tk != T.
+    The products take bf16 operands with fp32 sums, p and ds are rounded to
+    bf16 where the Pallas kernels round them, the softmax and lse are fp32.
+    The backward of both is fed the Pallas forward's o and lse.  The same
+    plain versions on float64 inputs stay in float64 (the reference the
+    card's readings against float64 use): o and the gradients within 1e-12
+    of einsum attention and its autograd gradients in float64."""
+    for t, tk, causal, scale in ((64, 64, True, None), (72, 72, False, 0.3),
+                                 (64, 48, True, None)):
+        q, k, v, do = (torch.from_numpy(a).double()
+                       for a in _inputs(t, tk, seed=3 * t + tk))
+        sm = scale if scale is not None else q.shape[-1] ** -0.5
+        xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        want_o = _float64_attention(*xs, causal, sm)
+        want = torch.autograd.grad(want_o, xs, do)
+        o, lse = patt.flash_fwd_plain(q, k, v, causal, scale)
+        got = patt.flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
+        for name, g, w in zip(("o", "dq", "dk", "dv"), (o,) + got,
+                              (want_o.detach(),) + want):
+            assert g.dtype == torch.float64, name
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12,
+                                       msg="float64 %s T=%d Tk=%d"
+                                       % (name, t, tk))
+        assert lse.dtype == torch.float64
+    rtol, atol = _TOL["bfloat16"]
+    for t, tk, causal, scale in ((64, 64, True, None), (72, 72, False, 0.3),
+                                 (64, 48, True, None)):
+        arrays = [a.astype(jnp.bfloat16)
+                  for a in _inputs(t, tk, seed=3 * t + tk)]
+        q, k, v, do = (torch.from_numpy(np.asarray(a).astype(np.float32))
+                       .to(torch.bfloat16) for a in arrays)
+        sm = scale if scale is not None else q.shape[-1] ** -0.5
+        want_o, want_lse = jatt._flash_fwd_pallas(
+            *arrays[:3], causal, sm, interpret=True, return_lse=True)
+        o, lse = pak.fused_flash_fwd(q, k, v, causal, scale)
+        assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        np.testing.assert_allclose(o.float().numpy(),
+                                   np.asarray(want_o).astype(np.float32),
+                                   rtol=rtol, atol=atol)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                                   rtol=_TOL["float32"][0],
+                                   atol=_TOL["float32"][1])
+        want = jatt._flash_bwd_pallas(*arrays[:3], want_o, want_lse,
+                                      arrays[3], causal, sm, interpret=True)
+        o = torch.from_numpy(np.asarray(want_o).astype(np.float32)).to(
+            torch.bfloat16)
+        got = pak.fused_flash_bwd(q, k, v, o, torch.from_numpy(
+            np.array(want_lse)), do, causal, scale)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+            np.testing.assert_allclose(
+                g.float().numpy(), np.asarray(w).astype(np.float32),
+                rtol=rtol, atol=atol, err_msg="%s T=%d Tk=%d" % (name, t, tk))
 
 
 def test_backward_kernels_by_head_dim():

@@ -33,6 +33,17 @@ TOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on the test's own thread (see
+    ``tests/test_torch_attention.py``: torch's first multi-threaded
+    ``exp`` in a process can return one chunk at reduced accuracy)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.fixture(scope="module")
 def lm():
     cfg = jtfm.lm_config(num_classes=VOCAB, seq_len=SEQ_LEN,

@@ -9,7 +9,9 @@ Tolerance 2e-5 (the fp32 class of the JAX parity harness) for the forward
 and 1e-4 for gradients, which sum over every row.  The reference grid's bf16
 and fp16 cases (``norm_kernels.py`` ``_ln_op_case``) hold the forward's plain
 version, fp32 math with y in the data's dtype, to ``parity._TOL``'s class of
-that dtype.
+that dtype; on the same cases the op's gradient (fp32 math) against
+``jax.grad`` of the stock op: the data's gradient in its dtype, to its
+class, and gamma's and beta's in fp32, to 1e-4.
 """
 
 import numpy as np
@@ -28,6 +30,17 @@ from mxnet_tpu_torch.ops.registry import get_op
 
 TOL = 2e-5
 GRAD_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on the test's own thread (see
+    ``tests/test_torch_attention.py``: torch's first multi-threaded
+    ``exp`` in a process can return one chunk at reduced accuracy)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def _inputs(shape, axis, seed):
@@ -84,6 +97,31 @@ def test_layer_norm_op_low_precision_matches_jax():
         np.testing.assert_allclose(rstd.numpy(),
                                    1 / np.sqrt(x64.var(-1) + 1e-5),
                                    rtol=TOL, atol=TOL)
+        # the gradient: fp32 math, dx in the data's dtype, dgamma and dbeta
+        # in the parameters' (fp32), as autodiff of the JAX op gives them
+        dy = np.random.RandomState(7).randn(*case[1]).astype(np.float32)
+        attrs = {"axis": -1, "eps": 1e-5}
+
+        def loss(x, g, b):
+            y = jatt._layer_norm(attrs, x, g, b).astype(jnp.float32)
+            return jnp.sum(y * jnp.asarray(dy))
+
+        want = jax.grad(loss, argnums=(0, 1, 2))(data, gamma, beta)
+        xs = [x.requires_grad_(True)] + [
+            torch.from_numpy(np.array(a)).requires_grad_(True)
+            for a in (gamma, beta)]
+        op = get_op("LayerNorm")
+        (y,), _ = op.apply(op.parse_attrs({}), xs)
+        assert y.dtype == dtype
+        got = torch.autograd.grad(y, xs, torch.from_numpy(dy).to(dtype))
+        assert got[0].dtype == dtype and want[0].dtype == data.dtype
+        np.testing.assert_allclose(got[0].float().numpy(),
+                                   np.asarray(want[0]).astype(np.float32),
+                                   rtol=rtol, atol=atol)
+        for gt, wt in zip(got[1:], want[1:]):
+            assert gt.dtype == torch.float32
+            np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
+                                       rtol=GRAD_TOL, atol=GRAD_TOL)
 
 
 def test_row_statistics_are_mean_and_rsqrt_of_population_variance():

@@ -23,6 +23,17 @@ from mxnet_tpu_torch.ops.fused import norm_kernels as pnk
 TOL = 2e-5
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on the test's own thread (see
+    ``tests/test_torch_attention.py``: torch's first multi-threaded
+    ``exp`` in a process can return one chunk at reduced accuracy)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _inputs(shape, seed):
     rng = np.random.RandomState(seed)
     c = shape[-1]

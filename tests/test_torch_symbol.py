@@ -6,7 +6,11 @@ order, the same inferred shapes, and the same forward output at every
 node of the graph (``get_internals``) from the same numpy weights, within
 2e-5 absolute and relative (fp32; the frameworks sum in different orders).
 ``SoftmaxOutput``'s gradient ignores the head gradient exactly as the JAX
-custom VJP does; held to 1e-6 (one softmax, no long sums).
+custom VJP does; held to 1e-6 (one softmax, no long sums).  The bf16
+graph (``dtype="bfloat16"``, the bench's): the same argument types (fp32
+parameters), the same dtype at every node, the graph's output within the
+bf16 class of the JAX parity harness and every node within that class
+scaled to its tensor.
 """
 
 import re
@@ -21,6 +25,7 @@ import jax.numpy as jnp
 from mxnet_tpu.executor import _graph_fn
 from mxnet_tpu.models import transformer as jtfm
 from mxnet_tpu.ops import tensor as jtensor
+from mxnet_tpu.ops.fused.parity import _TOL
 from mxnet_tpu.ops.registry import get_op as jget_op
 from mxnet_tpu.symbol import _infer
 from mxnet_tpu_torch import symbol as psym
@@ -36,6 +41,17 @@ CFG = dict(num_classes=64, seq_len=16, num_embed=32, num_heads=4,
            num_layers=2)
 SHAPES = {"data": (2, 16), "softmax_label": (2, 16)}
 TYPES = {"data": "int32"}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on the test's own thread (see
+    ``tests/test_torch_attention.py``: torch's first multi-threaded
+    ``exp`` in a process can return one chunk at reduced accuracy)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")
@@ -61,11 +77,11 @@ def test_arguments_and_inferred_shapes_match_jax(graphs):
 
 
 def _anon(name):
-    return re.sub(r"^(elemwise_add|broadcast_add|reshape)\d+", r"\1", name)
+    return re.sub(r"^(elemwise_add|broadcast_add|reshape|cast)\d+", r"\1",
+                  name)
 
 
-def test_every_node_output_matches_jax(graphs):
-    jsy, psy = graphs
+def _node_args(jsy):
     names = jsy.list_arguments()
     shapes = dict(zip(names, _infer(jsy, SHAPES, TYPES)[0]))
     rng = np.random.RandomState(0)
@@ -77,6 +93,10 @@ def test_every_node_output_matches_jax(graphs):
             args[n] = rng.randint(0, 64, shapes[n]).astype(np.float32)
         else:
             args[n] = (rng.randn(*shapes[n]) * 0.3).astype(np.float32)
+    return args
+
+
+def _node_outputs(jsy, psy, args):
     jint, pint = jsy.get_internals(), psy.get_internals()
     # anonymous nodes are numbered by a per-process counter (elemwise_add3
     # ...), which other tests advance: compare the names without it
@@ -86,9 +106,46 @@ def test_every_node_output_matches_jax(graphs):
                                {}, jax.random.PRNGKey(0), False)
     pouts, _ = graph_fn(pint)({n: torch.from_numpy(a)
                                for n, a in args.items()}, {})
-    for name, j, p in zip(jint.list_outputs(), jouts, pouts):
+    return zip(jint.list_outputs(), jouts, pouts)
+
+
+def test_every_node_output_matches_jax(graphs):
+    jsy, psy = graphs
+    for name, j, p in _node_outputs(jsy, psy, _node_args(jsy)):
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(j),
                                    rtol=TOL, atol=TOL, err_msg=name)
+
+
+def test_bf16_graph_types_and_nodes_match_jax():
+    """``get_symbol(dtype="bfloat16")``: fp32 parameters (the JAX
+    ``_infer``'s argument types, which the trainers' ``arg_dtypes`` read),
+    bf16 activations between the two Casts and fp32 logits into the head,
+    node for node.  The frameworks round bf16 at other places (XLA fuses
+    elementwise chains, torch rounds after each op), so a node may differ
+    by an ulp of its largest values: each node is held to the bf16 class
+    with its absolute part scaled by the node's largest value, the graph's
+    output to the class itself."""
+    rtol, atol = _TOL["bfloat16"]
+    cfg = dict(CFG, dtype="bfloat16")
+    jsy, psy = jtfm.get_symbol(**cfg), ptfm.get_symbol(**cfg)
+    assert psy.list_arguments() == jsy.list_arguments()
+    jres = _infer(jsy, SHAPES, TYPES)
+    pres = psym.infer(psy, SHAPES, TYPES)
+    assert pres[0] == jres[0] and pres[1] == jres[1]
+    assert [str(t) for t in pres[3]] == [str(t) for t in jres[3]]
+    assert {str(t) for t in pres[3]} == {"int32", "float32"}
+    seen = set()
+    for name, j, p in _node_outputs(jsy, psy, _node_args(jsy)):
+        want = np.asarray(j)
+        assert str(p.dtype)[6:] == str(want.dtype), name
+        seen.add(str(want.dtype))
+        want = want.astype(np.float32)
+        np.testing.assert_allclose(p.detach().float().numpy(), want,
+                                   rtol=rtol, atol=atol * np.abs(want).max(),
+                                   err_msg=name)
+    assert seen == {"int32", "float32", "bfloat16"}
+    np.testing.assert_allclose(p.detach().numpy(), want, rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -7,7 +7,10 @@ version); the JAX trainer on a one-device CPU mesh.  ``init(seed=0)`` gives
 the same bits in both (the same numpy draws).  Three steps of the 2-layer
 d32 LM with SGD momentum then agree within fp32 tolerances, stated below;
 so do a momentum-0 run and a ``skip_nonfinite`` step over a NaN batch, on a
-one-layer softmax classifier (whose float input can carry the NaN).
+one-layer softmax classifier (whose float input can carry the NaN).  The
+bench's own dtype, ``get_symbol(dtype="bfloat16")``, trains three steps
+with fp32 parameters and momenta to the JAX trainer's results within the
+bf16 class of the JAX parity harness (``parity._TOL``).
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ from jax.sharding import Mesh
 
 from mxnet_tpu import symbol as jsym
 from mxnet_tpu.models import transformer as jtfm
+from mxnet_tpu.ops.fused.parity import _TOL
 from mxnet_tpu.parallel.trainer import ShardedTrainer as JTrainer
 from mxnet_tpu_torch import symbol as psym
 from mxnet_tpu_torch.base import MXNetError
@@ -34,6 +38,17 @@ MOM_TOL = dict(rtol=1e-3, atol=1e-8)
 
 B, T, V = 2, 16, 64
 CFG = dict(num_classes=V, seq_len=T, num_embed=32, num_heads=4, num_layers=2)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on the test's own thread (see
+    ``tests/test_torch_attention.py``: torch's first multi-threaded
+    ``exp`` in a process can return one chunk at reduced accuracy)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def _mesh():
@@ -91,6 +106,43 @@ def test_three_lm_steps_match_jax():
                                    **OUT_TOL)
     _close(pp, jp, PARAM_TOL, "param")
     _close(pm, jm, MOM_TOL, "momentum")
+
+
+def test_three_bf16_lm_steps_match_jax():
+    """The bench's dtype: the graph computes in bf16 between the two Casts
+    while the trainer keeps fp32 parameters and momenta (the JAX trainer's
+    ``arg_dtypes``).  The two frameworks round bf16 at other places (XLA
+    fuses elementwise chains, torch rounds after each op; the port's flash
+    plain versions round p where the Pallas kernel does, the JAX CPU path
+    does not), so the outputs are held to the bf16 class and the weights and
+    momenta to the same class with its absolute part scaled by each
+    tensor's largest value (a bias starts at zero and holds only updates)."""
+    rtol, atol = _TOL["bfloat16"]
+    cfg = dict(CFG, dtype="bfloat16")
+    jt, pt = _pair(jtfm.get_symbol(**cfg), ptfm.get_symbol(**cfg),
+                   {"data": (B, T), "softmax_label": (B, T)},
+                   {"data": "int32"}, learning_rate=1e-2, momentum=0.9,
+                   rescale_grad=1.0 / (B * T))
+    assert {n: str(t) for n, t in pt.arg_dtypes.items()} == \
+        {n: str(t) for n, t in jt.arg_dtypes.items()}
+    jp, jm, ja = jt.init(seed=0)
+    pp, pm, pa = pt.init(seed=0)
+    jstep, pstep = jt.step_fn(), pt.step_fn()
+    for i in range(3):
+        batch = _lm_batch(i)
+        jouts, jp, jm, ja = jstep(jp, jm, ja, jt.place_batch(batch),
+                                  jax.random.PRNGKey(i))
+        pouts, pp, pm, pa = pstep(pp, pm, pa, pt.place_batch(batch))
+        assert pouts[0].dtype == torch.float32
+        np.testing.assert_allclose(pouts[0].numpy(), np.asarray(jouts[0]),
+                                   rtol=rtol, atol=atol)
+    for what, got, want in (("param", pp, jp), ("momentum", pm, jm)):
+        for n in want:
+            w = np.asarray(want[n])
+            assert got[n].dtype == torch.float32 and w.dtype == np.float32
+            np.testing.assert_allclose(got[n].numpy(), w, rtol=rtol,
+                                       atol=atol * np.abs(w).max(),
+                                       err_msg="%s %s" % (what, n))
 
 
 def _classifier(lib):

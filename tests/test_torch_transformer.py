@@ -27,6 +27,17 @@ VOCAB, SEQ_LEN, EMBED, HEADS, LAYERS = 64, 48, 16, 2, 2
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU path runs on the test's own thread (see
+    ``tests/test_torch_attention.py``: torch's first multi-threaded
+    ``exp`` in a process can return one chunk at reduced accuracy)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.fixture(scope="module")
 def lm():
     cfg = ptfm.lm_config(num_classes=VOCAB, seq_len=SEQ_LEN,
