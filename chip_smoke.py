@@ -36,8 +36,11 @@ Phases, each fatal on failure:
    shape, at ragged T, Tk != T and head dims 32 and 128 (the bf16 class for
    o, dq, dk, dv; 1e-4 for lse), two backward calls giving equal bits, the
    gradients' errors against float64 at T 512 and 2048, and their times
-   beside SDPA's bf16 forward and autograd backward.  The earlier kernels
-   kept for these timings must launch on no main path.
+   beside SDPA's bf16 forward and autograd backward (the latter by CUDA
+   events and by its kernels' device time in one profiler window); the
+   backward pair (TMA producer warp, mbarrier ring) in turns with the first
+   bf16 pair (v1), which keeps head dim 128.  The earlier kernels kept for
+   these timings must launch on no main path.
 4. The generation lane at the full width of the LM the repo benches
    (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
    vocab 32000, seq_len 2048), fp32, random weights from a seed: an
@@ -142,9 +145,11 @@ CHECKED = (0, 7)            # requests whose logits meet the full forward
 LANE_KERNELS = ("flash_prefill", "paged_decode", "lm_layer_norm",
                 "lm_gelu_bias")
 # Kernels replaced by a redesign and kept only for the in-turn timings of
-# phase 3 (the CUDA-core backward pair also serves head dim 128, which no
-# main path runs; phase 6 checks it stays off the LM path).
-EARLIER_KERNELS = ("flash_fwd_simt", "layer_norm_op_v1", "paged_decode_v1")
+# phase 3 (the CUDA-core backward pair and the first bf16 backward pair also
+# serve head dim 128, which no main path runs; phase 6 checks they stay off
+# the LM path).
+EARLIER_KERNELS = ("flash_fwd_simt", "layer_norm_op_v1", "paged_decode_v1",
+                   "flash_bwd_dkdv_bf16_v1", "flash_bwd_dq_bf16_v1")
 
 
 class SmokeError(Exception):
@@ -476,6 +481,28 @@ def events_ms(fn, iters, warmup=1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def profiled_ms(fn, iters, warmup=1):
+    """Device ms of one ``fn()`` from one ``torch.profiler`` window: the sum
+    of the times of the CUDA kernels that ``iters`` calls ran, over
+    ``iters``.  For calls a CUDA graph cannot capture (autograd's backward):
+    unlike CUDA events around the calls, it leaves out the gaps between the
+    kernels.  None when the profiler saw no CUDA kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else None
 
 
 def exact(got, want, name):
@@ -925,10 +952,17 @@ def check_bf16_flash(dev, cfg):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     fwd_ms = cuda_ms(lambda i: ak.fused_flash_fwd(q, k, v, True), 10)
-    kv_ms = cuda_ms(lambda i: ak.FLASH_BWD_DKDV_BF16.launch(
-        dev, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims), 10)
-    q_ms = cuda_ms(lambda i: ak.FLASH_BWD_DQ_BF16.launch(
-        dev, *ptrs, dq.data_ptr(), *dims), 10)
+    # the backward pair in turns with the first bf16 pair (v1)
+    kv_v1, kv_ms = in_turns(
+        lambda i: ak.FLASH_BWD_DKDV_BF16_V1.launch(
+            dev, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims),
+        lambda i: ak.FLASH_BWD_DKDV_BF16.launch(
+            dev, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims), 10)
+    q_v1, q_ms = in_turns(
+        lambda i: ak.FLASH_BWD_DQ_BF16_V1.launch(
+            dev, *ptrs, dq.data_ptr(), *dims),
+        lambda i: ak.FLASH_BWD_DQ_BF16.launch(
+            dev, *ptrs, dq.data_ptr(), *dims), 10)
     plain_fwd = cuda_ms(lambda i: att.flash_fwd_plain(q, k, v, True), 2)
     plain_bwd = cuda_ms(lambda i: att.flash_bwd_plain(q, k, v, o, lse, do,
                                                       True), 2)
@@ -936,8 +970,17 @@ def check_bf16_flash(dev, cfg):
         q, k, v, is_causal=True), 10)
     q_, k_, v_ = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
-    lib_bwd = events_ms(lambda: torch.autograd.grad(
-        lib_out, (q_, k_, v_), do, retain_graph=True), 5)
+
+    def lib_grad():
+        return torch.autograd.grad(lib_out, (q_, k_, v_), do,
+                                   retain_graph=True)
+
+    # SDPA's backward by CUDA events around the calls and by the device
+    # time of its kernels (the kernels' own footing: graph replay leaves no
+    # gaps between launches); the library column takes the device time
+    lib_events = events_ms(lib_grad, 5)
+    lib_device = profiled_ms(lib_grad, 5)
+    lib_bwd = lib_events if lib_device is None else lib_device
     # bytes: each input read once, each output written once (bf16 tensors,
     # fp32 lse and delta); operations: 2 D per (query, key) pair at or
     # below the diagonal for each product (forward 2, dK/dV 4, dQ 3)
@@ -947,22 +990,29 @@ def check_bf16_flash(dev, cfg):
     nb_q, by_q = bound(5 * n * 2 + 2 * nrows * 4, 6 * d * pairs,
                        PEAK_BF16_FLOPS)
     print("  [bf16 flash, training shape [%d, %d, %d, %d] causal] forward "
-          "%.4f ms (SDPA %.4f, bound %.4f); dK/dV %.4f ms + dQ %.4f ms = "
-          "%.4f ms (SDPA's autograd backward %.4f, bounds %.4f + %.4f)"
-          % (b, heads, t, d, fwd_ms, lib_fwd, nb, kv_ms, q_ms, kv_ms + q_ms,
-             lib_bwd, nb_kv, nb_q))
+          "%.4f ms (SDPA %.4f, bound %.4f)" % (b, heads, t, d, fwd_ms,
+                                               lib_fwd, nb))
+    print("  [bf16 flash backward, same shape] dK/dV %.4f ms + dQ %.4f ms = "
+          "%.4f ms (v1 in turns: %.4f + %.4f = %.4f); bounds %.4f + %.4f "
+          "(shares %.1f%% and %.1f%%); SDPA's autograd backward %s ms of "
+          "device time (profiler), %.4f ms by CUDA events"
+          % (kv_ms, q_ms, kv_ms + q_ms, kv_v1, q_v1, kv_v1 + q_v1, nb_kv,
+             nb_q, 100 * nb_kv / kv_ms, 100 * nb_q / q_ms,
+             "not measured" if lib_device is None else "%.4f" % lib_device,
+             lib_events))
     src = "mxnet_tpu_torch/csrc/flash_bf16.cu"
+    src_bwd = "mxnet_tpu_torch/csrc/flash_bwd_bf16_sm90.cu"
     rows = [
         {"name": "flash_fwd_bf16", "route": "cuda", "source": src,
          "replaces": "mxnet_tpu/ops/attention.py:281", "max_abs_err": err_o,
          "ms": fwd_ms, "plain_ms": plain_fwd, "bound_ms": nb,
          "bound_by": by, "library_ms": lib_fwd},
-        {"name": "flash_bwd_dkdv_bf16", "route": "cuda", "source": src,
+        {"name": "flash_bwd_dkdv_bf16", "route": "cuda", "source": src_bwd,
          "replaces": "mxnet_tpu/ops/attention.py:572",
          "max_abs_err": max(err_dk, err_dv), "ms": kv_ms,
          "plain_ms": plain_bwd, "bound_ms": nb_kv, "bound_by": by_kv,
          "library_ms": lib_bwd},
-        {"name": "flash_bwd_dq_bf16", "route": "cuda", "source": src,
+        {"name": "flash_bwd_dq_bf16", "route": "cuda", "source": src_bwd,
          "replaces": "mxnet_tpu/ops/attention.py:596",
          "max_abs_err": err_dq, "ms": q_ms, "plain_ms": plain_bwd,
          "bound_ms": nb_q, "bound_by": by_q, "library_ms": lib_bwd}]
@@ -1689,6 +1739,7 @@ def check_training_step(dev, dtype="float32"):
 _OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dq_kernel", "flash_fwd_bf16_kernel",
                 "flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                "flash_bwd_dkdv_bf16_v1_kernel", "flash_bwd_dq_bf16_v1_kernel",
                 "flash_bwd_dkdv_simt_kernel",
                 "flash_bwd_dq_simt_kernel", "layer_norm_op_kernel",
                 "sgd_mom_multi_kernel", "conv1x1_dgrad_sm90_kernel",
@@ -1759,8 +1810,9 @@ def run_training(dev, cfg, card):
         raise SmokeError("training losses %s: not finite and falling"
                          % losses)
     # the flash kernels of the graph's dtype run once a layer a step, those
-    # of the other dtype and the CUDA-core pair (D = 128 only) never; the
-    # LayerNorm op and the momentum step run every step
+    # of the other dtype, the CUDA-core pair and the first bf16 backward
+    # pair (D = 128 only) never; the LayerNorm op and the momentum step run
+    # every step
     steps, layers = 1 + DRIVE_STEPS, cfg["num_layers"]
     dtype = cfg.get("dtype", "float32")
     for name in FLASH_KERNELS[dtype]:
@@ -1769,7 +1821,8 @@ def run_training(dev, cfg, card):
                              % (name, counts.get(name, 0), steps, layers))
     other = [n for d_, names in FLASH_KERNELS.items() if d_ != dtype
              for n in names]
-    for name in other + ["flash_bwd_dkdv_simt", "flash_bwd_dq_simt"]:
+    for name in other + ["flash_bwd_dkdv_simt", "flash_bwd_dq_simt",
+                         "flash_bwd_dkdv_bf16_v1", "flash_bwd_dq_bf16_v1"]:
         if counts.get(name, 0):
             raise SmokeError("%s launched on the %s training path"
                              % (name, dtype))
@@ -2193,7 +2246,8 @@ def main():
                 print("  %s: %s" % (name, entry))
             elif "registers" in line or "spill" in line:
                 print("  %s:   %s" % (name, line.strip()))
-            elif "C7520" in line:   # ptxas serialized a kernel's wgmma
+            elif re.search(r"\(C75\d\d\)", line):
+                # ptxas serialized a kernel's wgmma (C7510-C7520)
                 print("  %s:   %s" % (name, line.strip()))
 
     print("== phase 3: kernels against their plain versions")

@@ -4,10 +4,12 @@
 //
 // mxtpu_flash_fwd_bf16 replaces the Pallas flash forward of the JAX package's
 // training path on bf16 inputs (mxnet_tpu/ops/attention.py _flash_fwd_pallas
-// with return_lse=True, _flash_kernel); mxtpu_flash_bwd_dkdv_bf16 and
-// mxtpu_flash_bwd_dq_bf16 replace the two pallas_calls of _flash_bwd_pallas
-// (_flash_bwd_dkdv_kernel, _flash_bwd_dq_kernel) on bf16 inputs.  The fp32
-// kernels of attention_kernels.cu keep the fp32 inputs.
+// with return_lse=True, _flash_kernel); mxtpu_flash_bwd_dkdv_bf16_v1 and
+// mxtpu_flash_bwd_dq_bf16_v1 replace the two pallas_calls of
+// _flash_bwd_pallas (_flash_bwd_dkdv_kernel, _flash_bwd_dq_kernel) on bf16
+// inputs of head dim 128; at head dims 32 and 64 the redesigned pair of
+// flash_bwd_bf16_sm90.cu does (these stay its in-turn yardstick).  The
+// fp32 kernels of attention_kernels.cu keep the fp32 inputs.
 //
 // What the TPU kernels compute on bf16, and so these: every product takes
 // bf16 operands and sums in fp32 (S = q k^T, dP = do v^T, P V, P^T do,
@@ -54,37 +56,14 @@
 #include <cuda_bf16.h>
 
 #include "common.h"
+#include "flash_bf16.h"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace mxtpu;
 
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int kRes = 128;      // resident rows of a block
-
-// Shared-memory descriptor, 128-byte swizzle, 8-row groups 1024 bytes apart
-// (SBO); `lbo` bytes between 64-column atoms of an MN-major operand (a
-// K-major one takes 16, unused).
-__device__ __forceinline__ unsigned long long sdesc(const void* p, int lbo) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) |
-         (static_cast<unsigned long long>((lbo >> 4) & 0x3FFF) << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-// Byte offset of element (r, col) of a row-major bf16 tile of `rows` rows:
-// 64-column atoms `rows * 128` bytes apart; in an atom, row r at r * 128,
-// its 16-byte units XOR r % 8.
-__device__ __forceinline__ int swz(int rows, int r, int col) {
-  return (col / 64) * rows * 128 + r * 128 + ((((col % 64) / 8) ^ (r % 8)) * 16) +
-         (col % 8) * 2;
-}
-
-// Columns of a tile: D, or 64 at D = 32 (the pad reads as zero).
-template <int D>
-__host__ __device__ constexpr int cols() {
-  return D < 64 ? 64 : D;
-}
 
 // Rows [r0, r0 + R) of a row-major [len][D] bf16 matrix into a tile, by
 // cp.async; rows at or past len and the pad columns are zero-filled.
@@ -105,142 +84,6 @@ __device__ __forceinline__ void cp_wait_sync() {
   mxtpu::cp_async_wait_all();
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-}
-
-// d[64 x N] (+)= a[64 x 16] @ b[16 x N], both K-major in shared memory; the
-// sum starts from d when acc != 0, from zero otherwise.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, unsigned long long a, unsigned long long b,
-                                         int acc);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, unsigned long long a,
-                                             unsigned long long b, int acc) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float* d, unsigned long long a,
-                                             unsigned long long b, int acc) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d[64 x 64] += a[64 x 16] (registers, bf16 A fragments) @ b[16 x 64]
-// (shared memory, MN-major: the instruction transposes it).
-__device__ __forceinline__ void wgmma_rs_t(float* d, const unsigned* a, unsigned long long b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// S (+)= A B^T over the D columns of a resident A tile (this warpgroup's 64
-// rows, `a_rows` rows in all) and a streamed B tile of N rows.
-template <int D, int N>
-__device__ __forceinline__ void product_ss(float* s, const unsigned char* a, int a_rows,
-                                           int a_row0, const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int ka = (kk / 4) * a_rows * 128 + a_row0 * 128 + (kk % 4) * 32;
-    const int kb = (kk / 4) * N * 128 + (kk % 4) * 32;
-    wgmma_ss<N>(s, sdesc(a + ka, 16), sdesc(b + kb, 16), kk > 0);
-  }
-}
-
-// d[n] += A_frags @ B, B a streamed tile of R rows (the k axis) read
-// MN-major, 64 columns per accumulator.
-template <int D, int R>
-__device__ __forceinline__ void product_rs(float (&d)[cols<D>() / 64][32],
-                                           const unsigned (&a)[R / 16][4],
-                                           const unsigned char* b) {
-#pragma unroll
-  for (int n = 0; n < cols<D>() / 64; ++n)
-#pragma unroll
-    for (int kk = 0; kk < R / 16; ++kk)
-      wgmma_rs_t(d[n], a[kk], sdesc(b + n * R * 128 + kk * 16 * 128, R * 128));
-}
-
-// An m64nN fp32 accumulator rounded to bf16 A fragments, column blocks 2kk
-// and 2kk + 1 being k-step kk.
-template <int N>
-__device__ __forceinline__ void to_frags(const float* x, unsigned (&a)[N / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = mxtpu::pack_bf16(x[8 * kk], x[8 * kk + 1]);
-    a[kk][1] = mxtpu::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = mxtpu::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = mxtpu::pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-// Rows row0 and row1 (this thread's) of accumulators d, rounded to bf16, to
-// a row-major [len][D] matrix.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
-                                           const float (&d)[cols<D>() / 64][32], int row0,
-                                           int row1, int len, int c, float s0 = 1.f,
-                                           float s1 = 1.f) {
-#pragma unroll
-  for (int n = 0; n < cols<D>() / 64; ++n)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int col = n * 64 + 8 * i + 2 * c;
-      if (col >= D) continue;
-      if (row0 < len)
-        *reinterpret_cast<unsigned*>(dst + static_cast<long long>(row0) * D + col) =
-            mxtpu::pack_bf16(d[n][4 * i] * s0, d[n][4 * i + 1] * s0);
-      if (row1 < len)
-        *reinterpret_cast<unsigned*>(dst + static_cast<long long>(row1) * D + col) =
-            mxtpu::pack_bf16(d[n][4 * i + 2] * s1, d[n][4 * i + 3] * s1);
-    }
-}
-
-template <int D>
-__device__ __forceinline__ void zero_acc(float (&d)[cols<D>() / 64][32]) {
-#pragma unroll
-  for (int n = 0; n < cols<D>() / 64; ++n)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) d[n][i] = 0.f;
-}
-
-// The softmax's exponentials in base 2, the scale folded in: p =
-// 2^(s * scale * log2(e) - m * log2(e)) is one FFMA and one ex2.approx
-// (within 2 ulps; 2^-huge is +0).
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // ---------------------------------------------------------------- forward
@@ -400,7 +243,7 @@ struct BwdB {
 // its keys and masks only those that cross them.
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
-flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+flash_bwd_dkdv_bf16_v1_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len, int tk_len,
@@ -507,7 +350,7 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 // get p = 0.  At most 128 registers a thread at D <= 64: two blocks an SM.
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+flash_bwd_dq_bf16_v1_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          bf16* __restrict__ dq, int t_len, int tk_len, int causal, float scale) {
@@ -617,17 +460,17 @@ cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* 
                        cudaStream_t stream) {
   if (dk != nullptr) {
     static bool attr = false;
-    cudaError_t err = allow_smem(flash_bwd_dkdv_bf16_kernel<D>, BwdB<D>::kDkdvBytes, attr);
+    cudaError_t err = allow_smem(flash_bwd_dkdv_bf16_v1_kernel<D>, BwdB<D>::kDkdvBytes, attr);
     if (err != cudaSuccess) return err;
     dim3 grid(bh, (tk_len + kRes - 1) / kRes);
-    flash_bwd_dkdv_bf16_kernel<D><<<grid, kThreads, BwdB<D>::kDkdvBytes, stream>>>(
+    flash_bwd_dkdv_bf16_v1_kernel<D><<<grid, kThreads, BwdB<D>::kDkdvBytes, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, t_len, tk_len, causal, scale);
   } else {
     static bool attr = false;
-    cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, BwdB<D>::kDqBytes, attr);
+    cudaError_t err = allow_smem(flash_bwd_dq_bf16_v1_kernel<D>, BwdB<D>::kDqBytes, attr);
     if (err != cudaSuccess) return err;
     dim3 grid(bh, (t_len + kRes - 1) / kRes);
-    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, BwdB<D>::kDqBytes, stream>>>(
+    flash_bwd_dq_bf16_v1_kernel<D><<<grid, kThreads, BwdB<D>::kDqBytes, stream>>>(
         q, k, v, dout, lse, delta, dq, t_len, tk_len, causal, scale);
   }
   return cudaGetLastError();
@@ -692,24 +535,28 @@ MXTPU_API int mxtpu_flash_fwd_bf16(const void* q, const void* k, const void* v, 
   }
 }
 
-// The backward's two passes on bf16.  q, dout: contiguous bf16 [B, H, T, D];
-// k, v: [B, H, Tk, D]; lse (from mxtpu_flash_fwd_bf16) and delta =
-// rowsum(dout * o) in fp32: fp32 [B, H, T].  mxtpu_flash_bwd_dkdv_bf16 writes
-// bf16 dk, dv [B, H, Tk, D]; mxtpu_flash_bwd_dq_bf16 writes bf16 dq
-// [B, H, T, D].  head_dim one of 32, 64, 128.
-MXTPU_API int mxtpu_flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
-                                        const void* dout, const float* lse, const float* delta,
-                                        void* dk, void* dv, int bsz, int heads, int t_len,
-                                        int tk_len, int head_dim, int causal, float scale,
-                                        void* stream) {
+// The backward's two passes on bf16, as PR 8 first wrote them (the _v1
+// entries): the path of head dim 128, which the redesigned pair of
+// flash_bwd_bf16_sm90.cu does not take, and the yardstick that pair is
+// timed against.  q, dout: contiguous bf16 [B, H, T, D]; k, v: [B, H, Tk,
+// D]; lse (from mxtpu_flash_fwd_bf16) and delta = rowsum(dout * o) in
+// fp32: fp32 [B, H, T].  mxtpu_flash_bwd_dkdv_bf16_v1 writes bf16 dk, dv
+// [B, H, Tk, D]; mxtpu_flash_bwd_dq_bf16_v1 writes bf16 dq [B, H, T, D].
+// head_dim one of 32, 64, 128.
+MXTPU_API int mxtpu_flash_bwd_dkdv_bf16_v1(const void* q, const void* k, const void* v,
+                                           const void* dout, const float* lse,
+                                           const float* delta, void* dk, void* dv, int bsz,
+                                           int heads, int t_len, int tk_len, int head_dim,
+                                           int causal, float scale, void* stream) {
   return dispatch_bwd(q, k, v, dout, lse, delta, nullptr, dk, dv, bsz, heads, t_len, tk_len,
                       head_dim, causal, scale, stream);
 }
 
-MXTPU_API int mxtpu_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                      const void* dout, const float* lse, const float* delta,
-                                      void* dq, int bsz, int heads, int t_len, int tk_len,
-                                      int head_dim, int causal, float scale, void* stream) {
+MXTPU_API int mxtpu_flash_bwd_dq_bf16_v1(const void* q, const void* k, const void* v,
+                                         const void* dout, const float* lse,
+                                         const float* delta, void* dq, int bsz, int heads,
+                                         int t_len, int tk_len, int head_dim, int causal,
+                                         float scale, void* stream) {
   return dispatch_bwd(q, k, v, dout, lse, delta, dq, nullptr, nullptr, bsz, heads, t_len,
                       tk_len, head_dim, causal, scale, stream);
 }

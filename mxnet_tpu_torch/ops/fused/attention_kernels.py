@@ -21,11 +21,14 @@ give the same bits.  ``chip_smoke.py`` prints
 the backward's errors against the plain version and, beside the plain
 version's own and SDPA's, against a float64 reference.
 
-On bf16 inputs (the bench LM's training dtype) the flash forward and the
-backward's two passes are the kernels of ``csrc/flash_bf16.cu``: one bf16
-wgmma per product with fp32 sums, the softmax in fp32, ``p`` and ``ds``
-rounded to bf16 where the Pallas kernels round them; ``o``, ``dq``, ``dk``
-and ``dv`` come out in bf16, ``lse`` in fp32.
+On bf16 inputs (the bench LM's training dtype) the flash forward is the
+kernel of ``csrc/flash_bf16.cu`` and the backward's two passes those of
+``csrc/flash_bwd_bf16_sm90.cu`` (a TMA producer warp feeding two wgmma
+warpgroups through an mbarrier ring; at head dim 128 the first bf16 pair
+of ``csrc/flash_bf16.cu``): one bf16 wgmma per product with fp32 sums, the
+softmax in fp32, ``p`` and ``ds`` rounded to bf16 where the Pallas kernels
+round them; ``o``, ``dq``, ``dk`` and ``dv`` come out in bf16, ``lse`` in
+fp32.
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ from ...base import MXNetError
 from .. import attention as _att
 from .._build import Kernel, device_kind, require
 
-__all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DKDV_BF16", "FLASH_BWD_DKDV_SIMT",
-           "FLASH_BWD_DQ", "FLASH_BWD_DQ_BF16", "FLASH_BWD_DQ_SIMT",
+__all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DKDV_BF16", "FLASH_BWD_DKDV_BF16_V1",
+           "FLASH_BWD_DKDV_SIMT", "FLASH_BWD_DQ", "FLASH_BWD_DQ_BF16",
+           "FLASH_BWD_DQ_BF16_V1", "FLASH_BWD_DQ_SIMT",
            "FLASH_FWD_BF16", "FLASH_FWD_SIMT", "FLASH_PREFILL",
            "PAGED_DECODE", "PAGED_DECODE_V1", "bwd_kernels", "decode_splits",
            "fused_flash_bwd", "fused_flash_fwd",
@@ -74,16 +78,29 @@ FLASH_BWD_DKDV_SIMT = Kernel(
 FLASH_BWD_DQ_SIMT = Kernel(
     "flash_bwd_dq_simt", "attention_kernels", "mxtpu_flash_bwd_dq_simt",
     [_P] * 7 + [_I] * 6 + [_F])
-# The bf16 flash forward and backward pair (csrc/flash_bf16.cu), with the
-# fp32 entries' arguments; o, dq, dk, dv bf16, lse and delta fp32.
+# The bf16 flash forward (csrc/flash_bf16.cu) and backward pair
+# (csrc/flash_bwd_bf16_sm90.cu: TMA producer warp, mbarrier ring, head dims
+# 32 and 64), with the fp32 entries' arguments; o, dq, dk, dv bf16, lse and
+# delta fp32.
 FLASH_FWD_BF16 = Kernel(
     "flash_fwd_bf16", "flash_bf16", "mxtpu_flash_fwd_bf16",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F])
 FLASH_BWD_DKDV_BF16 = Kernel(
-    "flash_bwd_dkdv_bf16", "flash_bf16", "mxtpu_flash_bwd_dkdv_bf16",
+    "flash_bwd_dkdv_bf16", "flash_bwd_bf16_sm90", "mxtpu_flash_bwd_dkdv_bf16",
     [_P] * 8 + [_I] * 6 + [_F])
 FLASH_BWD_DQ_BF16 = Kernel(
-    "flash_bwd_dq_bf16", "flash_bf16", "mxtpu_flash_bwd_dq_bf16",
+    "flash_bwd_dq_bf16", "flash_bwd_bf16_sm90", "mxtpu_flash_bwd_dq_bf16",
+    [_P] * 7 + [_I] * 6 + [_F])
+# The first bf16 backward pair (csrc/flash_bf16.cu), with the arguments
+# above: the path for D = 128, where the redesigned pair's consumers would
+# need more than their 232 registers a thread (dK and dV totals of 64
+# columns each, S^T, dP^T and the P, dS fragments of the accumulation in
+# flight); a run on the card also times them beside the redesigned pair.
+FLASH_BWD_DKDV_BF16_V1 = Kernel(
+    "flash_bwd_dkdv_bf16_v1", "flash_bf16", "mxtpu_flash_bwd_dkdv_bf16_v1",
+    [_P] * 8 + [_I] * 6 + [_F])
+FLASH_BWD_DQ_BF16_V1 = Kernel(
+    "flash_bwd_dq_bf16_v1", "flash_bf16", "mxtpu_flash_bwd_dq_bf16_v1",
     [_P] * 7 + [_I] * 6 + [_F])
 # The dtypes of the flash training kernels.
 _FLASH_DTYPES = (torch.float32, torch.bfloat16)
@@ -168,9 +185,13 @@ def fused_flash_fwd(q, k, v, causal=True, sm_scale=None):
 
 def bwd_kernels(head_dim, dtype=torch.float32):
     """The backward's ``(dK/dV, dQ)`` kernels for ``head_dim`` and the
-    inputs' ``dtype``: on bf16 the bf16 pair; on fp32 the tensor-core pair
-    for 32 and 64, the CUDA-core pair for 128."""
+    inputs' ``dtype``: on bf16 the redesigned pair for 32 and 64, the first
+    bf16 pair for 128; on fp32 the tensor-core pair for 32 and 64, the
+    CUDA-core pair for 128.  Head dim 128 takes the older kernels because
+    the newer ones would need more registers than a thread has there."""
     if dtype == torch.bfloat16:
+        if head_dim == 128:
+            return FLASH_BWD_DKDV_BF16_V1, FLASH_BWD_DQ_BF16_V1
         return FLASH_BWD_DKDV_BF16, FLASH_BWD_DQ_BF16
     if head_dim == 128:
         return FLASH_BWD_DKDV_SIMT, FLASH_BWD_DQ_SIMT

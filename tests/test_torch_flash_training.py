@@ -182,9 +182,12 @@ def test_bf16_plain_versions_match_pallas_in_bf16():
 
 
 def test_backward_kernels_by_head_dim():
-    """D 32 and 64 take the tensor-core pair; D 128, where the
+    """fp32: D 32 and 64 take the tensor-core pair; D 128, where the
     tensor-core dK/dV pass would need more registers than a thread has, the
-    CUDA-core pair, counted under its own names."""
+    CUDA-core pair, counted under its own names.  bf16: D 32 and 64 take
+    the redesigned pair (csrc/flash_bwd_bf16_sm90.cu), never the first
+    (``_v1``) one; D 128, past the redesigned consumers' registers, the
+    first pair, counted under its own names."""
     for d in (32, 64):
         assert pak.bwd_kernels(d) == (pak.FLASH_BWD_DKDV, pak.FLASH_BWD_DQ)
     assert pak.bwd_kernels(128) == (pak.FLASH_BWD_DKDV_SIMT,
@@ -193,6 +196,18 @@ def test_backward_kernels_by_head_dim():
              + pak.bwd_kernels(128)]
     assert names == ["flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_simt",
                      "flash_bwd_dq_simt"]
+    bf16 = torch.bfloat16
+    for d in (32, 64):
+        pair = pak.bwd_kernels(d, bf16)
+        assert pair == (pak.FLASH_BWD_DKDV_BF16, pak.FLASH_BWD_DQ_BF16)
+        assert [kern.lib for kern in pair] == ["flash_bwd_bf16_sm90"] * 2
+        assert not any(kern.name.endswith("_v1") for kern in pair)
+    assert pak.bwd_kernels(128, bf16) == (pak.FLASH_BWD_DKDV_BF16_V1,
+                                          pak.FLASH_BWD_DQ_BF16_V1)
+    names = [kern.name for kern in pak.bwd_kernels(64, bf16)
+             + pak.bwd_kernels(128, bf16)]
+    assert names == ["flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
+                     "flash_bwd_dkdv_bf16_v1", "flash_bwd_dq_bf16_v1"]
 
 
 def test_backward_plain_agrees_with_autograd_of_the_forward():
