@@ -38,9 +38,11 @@ Phases, each fatal on failure:
    gradients' errors against float64 at T 512 and 2048, and their times
    beside SDPA's bf16 forward and autograd backward (the latter by CUDA
    events and by its kernels' device time in one profiler window); the
-   backward pair (TMA producer warp, mbarrier ring) in turns with the first
-   bf16 pair (v1), which keeps head dim 128.  The earlier kernels kept for
-   these timings must launch on no main path.
+   forward and the backward pair (TMA producer warp, mbarrier ring) in
+   turns with the first bf16 forward and pair (v1), which keep head dim
+   128, the forward's o and lse bitwise equal to v1's on every shape
+   checked.  The earlier kernels kept for these timings must launch on no
+   main path.
 4. The generation lane at the full width of the LM the repo benches
    (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
    vocab 32000, seq_len 2048), fp32, random weights from a seed: an
@@ -149,7 +151,8 @@ LANE_KERNELS = ("flash_prefill", "paged_decode", "lm_layer_norm",
 # serve head dim 128, which no main path runs; phase 6 checks they stay off
 # the LM path).
 EARLIER_KERNELS = ("flash_fwd_simt", "layer_norm_op_v1", "paged_decode_v1",
-                   "flash_bwd_dkdv_bf16_v1", "flash_bwd_dq_bf16_v1")
+                   "flash_fwd_bf16_v1", "flash_bwd_dkdv_bf16_v1",
+                   "flash_bwd_dq_bf16_v1")
 
 
 class SmokeError(Exception):
@@ -843,13 +846,33 @@ def gate_control(got, want, name):
         raise SmokeError("the data-scaled gate passes %s" % name)
 
 
+def bf16_fwd_v1(q, k, v, causal, scale=None):
+    """One launch of the first bf16 flash forward (kept in the library for
+    these comparisons, and for head dim 128): ``(o, lse)``."""
+    import torch
+
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops.fused import attention_kernels as ak
+
+    bsz, heads, t_len, dim = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    ak.FLASH_FWD_BF16_V1.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bsz, heads, t_len, k.shape[2], dim, int(causal),
+        att._scale(q, scale))
+    return o, lse
+
+
 def check_bf16_flash(dev, cfg):
     """The bf16 flash forward with lse (row 1) and backward pair (rows 2,
     3), the kernels of the bench LM's own dtype, against their plain
     versions in bf16 at the training shape (batch 8, T 2048, causal, D 64),
-    at ragged T, Tk != T and the other head dims; their gradients against
-    float64 at T 512 and 2048; their times beside SDPA's in bf16.  Returns
-    the kernel rows of the JSON line (launches filled in later)."""
+    at ragged T, Tk != T and the other head dims, the forward's o and lse
+    also against the first bf16 forward's bits; their gradients against
+    float64 at T 512 and 2048; their times beside SDPA's in bf16 and, in
+    turns, the first bf16 kernels'.  Returns the kernel rows of the JSON
+    line (launches filled in later)."""
     import torch
     import torch.nn.functional as F
 
@@ -872,6 +895,17 @@ def check_bf16_flash(dev, cfg):
         outputs, the plain o and gradients, and the largest errors (o and
         lse, the gradients)."""
         o, lse = ak.fused_flash_fwd(q, k, v, causal, scale)
+        if ak.fwd_kernel(q.shape[-1], bf16) is ak.FLASH_FWD_BF16_V1:
+            print("  bf16 o, lse %s: the first forward (v1) computes them"
+                  % tag)
+        else:
+            o1, lse1 = bf16_fwd_v1(q, k, v, causal, scale)
+            if not (torch.equal(o, o1) and torch.equal(lse, lse1)):
+                raise SmokeError("bf16 flash forward %s: o or lse differs "
+                                 "from the first forward's bits" % tag)
+            print("  bf16 o, lse %s: bitwise equal to the first forward's "
+                  "(v1)" % tag)
+            del o1, lse1
         o_p, lse_p = att.flash_fwd_plain(q, k, v, causal, scale)
         errs = [bf16_err(o, o_p, "bf16 o " + tag),
                 max_err(lse, lse_p, FLASH_TOL, "bf16 lse " + tag)]
@@ -951,7 +985,10 @@ def check_bf16_flash(dev, cfg):
     dims = (b, heads, t, t, d, 1, scale)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
-    fwd_ms = cuda_ms(lambda i: ak.fused_flash_fwd(q, k, v, True), 10)
+    # the forward in turns with the first bf16 forward (v1)
+    fwd_v1, fwd_ms = in_turns(
+        lambda i: bf16_fwd_v1(q, k, v, True),
+        lambda i: ak.fused_flash_fwd(q, k, v, True), 10)
     # the backward pair in turns with the first bf16 pair (v1)
     kv_v1, kv_ms = in_turns(
         lambda i: ak.FLASH_BWD_DKDV_BF16_V1.launch(
@@ -990,8 +1027,10 @@ def check_bf16_flash(dev, cfg):
     nb_q, by_q = bound(5 * n * 2 + 2 * nrows * 4, 6 * d * pairs,
                        PEAK_BF16_FLOPS)
     print("  [bf16 flash, training shape [%d, %d, %d, %d] causal] forward "
-          "%.4f ms (SDPA %.4f, bound %.4f)" % (b, heads, t, d, fwd_ms,
-                                               lib_fwd, nb))
+          "%.4f ms (v1 in turns %.4f; SDPA %.4f; bound %.4f: shares %.1f%%, "
+          "v1 %.1f%%, SDPA %.1f%%)"
+          % (b, heads, t, d, fwd_ms, fwd_v1, lib_fwd, nb, 100 * nb / fwd_ms,
+             100 * nb / fwd_v1, 100 * nb / lib_fwd))
     print("  [bf16 flash backward, same shape] dK/dV %.4f ms + dQ %.4f ms = "
           "%.4f ms (v1 in turns: %.4f + %.4f = %.4f); bounds %.4f + %.4f "
           "(shares %.1f%% and %.1f%%); SDPA's autograd backward %s ms of "
@@ -1000,7 +1039,7 @@ def check_bf16_flash(dev, cfg):
              nb_q, 100 * nb_kv / kv_ms, 100 * nb_q / q_ms,
              "not measured" if lib_device is None else "%.4f" % lib_device,
              lib_events))
-    src = "mxnet_tpu_torch/csrc/flash_bf16.cu"
+    src = "mxnet_tpu_torch/csrc/flash_fwd_bf16_sm90.cu"
     src_bwd = "mxnet_tpu_torch/csrc/flash_bwd_bf16_sm90.cu"
     rows = [
         {"name": "flash_fwd_bf16", "route": "cuda", "source": src,
@@ -1738,6 +1777,7 @@ def check_training_step(dev, dtype="float32"):
 
 _OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dq_kernel", "flash_fwd_bf16_kernel",
+                "flash_fwd_bf16_v1_kernel",
                 "flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel",
                 "flash_bwd_dkdv_bf16_v1_kernel", "flash_bwd_dq_bf16_v1_kernel",
                 "flash_bwd_dkdv_simt_kernel",
@@ -1810,9 +1850,9 @@ def run_training(dev, cfg, card):
         raise SmokeError("training losses %s: not finite and falling"
                          % losses)
     # the flash kernels of the graph's dtype run once a layer a step, those
-    # of the other dtype, the CUDA-core pair and the first bf16 backward
-    # pair (D = 128 only) never; the LayerNorm op and the momentum step run
-    # every step
+    # of the other dtype, the CUDA-core pair and the first bf16 forward and
+    # backward pair (D = 128 only) never; the LayerNorm op and the momentum
+    # step run every step
     steps, layers = 1 + DRIVE_STEPS, cfg["num_layers"]
     dtype = cfg.get("dtype", "float32")
     for name in FLASH_KERNELS[dtype]:
@@ -1822,7 +1862,8 @@ def run_training(dev, cfg, card):
     other = [n for d_, names in FLASH_KERNELS.items() if d_ != dtype
              for n in names]
     for name in other + ["flash_bwd_dkdv_simt", "flash_bwd_dq_simt",
-                         "flash_bwd_dkdv_bf16_v1", "flash_bwd_dq_bf16_v1"]:
+                         "flash_fwd_bf16_v1", "flash_bwd_dkdv_bf16_v1",
+                         "flash_bwd_dq_bf16_v1"]:
         if counts.get(name, 0):
             raise SmokeError("%s launched on the %s training path"
                              % (name, dtype))

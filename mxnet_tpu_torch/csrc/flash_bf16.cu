@@ -1,15 +1,16 @@
-// Flash attention in bf16 for sm_90a: the forward with its log-sum-exp and the
-// backward's dK/dV and dQ passes, bf16 q, k, v, do, o, dq, dk, dv with fp32
-// lse and delta.
+// Flash attention in bf16 for sm_90a, as first written: the forward with its
+// log-sum-exp and the backward's dK/dV and dQ passes, bf16 q, k, v, do, o,
+// dq, dk, dv with fp32 lse and delta.
 //
-// mxtpu_flash_fwd_bf16 replaces the Pallas flash forward of the JAX package's
-// training path on bf16 inputs (mxnet_tpu/ops/attention.py _flash_fwd_pallas
-// with return_lse=True, _flash_kernel); mxtpu_flash_bwd_dkdv_bf16_v1 and
-// mxtpu_flash_bwd_dq_bf16_v1 replace the two pallas_calls of
-// _flash_bwd_pallas (_flash_bwd_dkdv_kernel, _flash_bwd_dq_kernel) on bf16
-// inputs of head dim 128; at head dims 32 and 64 the redesigned pair of
-// flash_bwd_bf16_sm90.cu does (these stay its in-turn yardstick).  The
-// fp32 kernels of attention_kernels.cu keep the fp32 inputs.
+// mxtpu_flash_fwd_bf16_v1 replaces the Pallas flash forward of the JAX
+// package's training path on bf16 inputs (mxnet_tpu/ops/attention.py
+// _flash_fwd_pallas with return_lse=True, _flash_kernel) at head dim 128;
+// mxtpu_flash_bwd_dkdv_bf16_v1 and mxtpu_flash_bwd_dq_bf16_v1 replace the
+// two pallas_calls of _flash_bwd_pallas (_flash_bwd_dkdv_kernel,
+// _flash_bwd_dq_kernel) on bf16 inputs of head dim 128.  At head dims 32
+// and 64 the redesigned kernels of flash_fwd_bf16_sm90.cu and
+// flash_bwd_bf16_sm90.cu do; these stay their in-turn yardstick.  The fp32
+// kernels of attention_kernels.cu keep the fp32 inputs.
 //
 // What the TPU kernels compute on bf16, and so these: every product takes
 // bf16 operands and sums in fp32 (S = q k^T, dP = do v^T, P V, P^T do,
@@ -57,6 +58,7 @@
 
 #include "common.h"
 #include "flash_bf16.h"
+#include "sm90.h"
 
 namespace {
 
@@ -106,9 +108,10 @@ struct FwdB {
 // (longest under causal) row blocks start first.
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                      int t_len, int tk_len, int causal, float scale) {
+flash_fwd_bf16_v1_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         float* __restrict__ lse, int t_len, int tk_len, int causal,
+                         float scale) {
   using F = FwdB<D>;
   constexpr int kNC = cols<D>() / 64;  // 64-column accumulators of O
   extern __shared__ unsigned char fwd_bf16_raw[];
@@ -432,23 +435,14 @@ flash_bwd_dq_bf16_v1_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   store_rows<D>(dq + qbase, dqa, row0, row1, t_len, c);
 }
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done = true;
-  return err;
-}
-
 template <int D>
 cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int bh,
                        int t_len, int tk_len, int causal, float scale, cudaStream_t stream) {
   static bool attr = false;
-  cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, FwdB<D>::kBytes, attr);
+  cudaError_t err = allow_smem(flash_fwd_bf16_v1_kernel<D>, FwdB<D>::kBytes, attr);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (t_len + kRes - 1) / kRes);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, FwdB<D>::kBytes, stream>>>(
+  flash_fwd_bf16_v1_kernel<D><<<grid, kThreads, FwdB<D>::kBytes, stream>>>(
       q, k, v, o, lse, t_len, tk_len, causal, scale);
   return cudaGetLastError();
 }
@@ -507,12 +501,15 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// q, o: contiguous bf16 [B, H, T, D]; k, v: [B, H, Tk, D]; lse: fp32 [B, H, T]
-// or nullptr; head_dim one of 32, 64, 128.  causal masks key j from query i
+// The forward on bf16 in its first design (the _v1 entry): the path of
+// head dim 128, which the redesigned forward of flash_fwd_bf16_sm90.cu does
+// not take, and the yardstick that forward is timed against.  q, o:
+// contiguous bf16 [B, H, T, D]; k, v: [B, H, Tk, D]; lse: fp32 [B, H, T] or
+// nullptr; head_dim one of 32, 64, 128.  causal masks key j from query i
 // when j > i.
-MXTPU_API int mxtpu_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int bsz, int heads, int t_len, int tk_len,
-                                   int head_dim, int causal, float scale, void* stream) {
+MXTPU_API int mxtpu_flash_fwd_bf16_v1(const void* q, const void* k, const void* v, void* o,
+                                      float* lse, int bsz, int heads, int t_len, int tk_len,
+                                      int head_dim, int causal, float scale, void* stream) {
   if (bsz <= 0 || heads <= 0 || t_len <= 0 || tk_len <= 0)
     return static_cast<int>(cudaGetLastError());
   const auto* q_ = static_cast<const bf16*>(q);
@@ -539,7 +536,7 @@ MXTPU_API int mxtpu_flash_fwd_bf16(const void* q, const void* k, const void* v, 
 // entries): the path of head dim 128, which the redesigned pair of
 // flash_bwd_bf16_sm90.cu does not take, and the yardstick that pair is
 // timed against.  q, dout: contiguous bf16 [B, H, T, D]; k, v: [B, H, Tk,
-// D]; lse (from mxtpu_flash_fwd_bf16) and delta = rowsum(dout * o) in
+// D]; lse (from a bf16 forward) and delta = rowsum(dout * o) in
 // fp32: fp32 [B, H, T].  mxtpu_flash_bwd_dkdv_bf16_v1 writes bf16 dk, dv
 // [B, H, Tk, D]; mxtpu_flash_bwd_dq_bf16_v1 writes bf16 dq [B, H, T, D].
 // head_dim one of 32, 64, 128.

@@ -86,7 +86,6 @@ constexpr int kThreads = 384;  // warpgroup 0 the producer, 1 and 2 the consumer
 constexpr int kRes = 128;      // resident rows of a block, 64 a consumer
 constexpr int kBS = 64;        // rows of a streamed tile
 constexpr int kStages = 6;     // the ring
-constexpr int kHeadGroup = 8;  // heads whose blocks are launched together
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536,
@@ -124,25 +123,6 @@ __device__ __forceinline__ Window window(const float* v, long long r, long long 
   const unsigned long long bytes = end - start < kWinBytes ? end - start : kWinBytes;
   return {reinterpret_cast<const void*>(start), static_cast<unsigned>(bytes),
           static_cast<int>((a - start) / 4)};
-}
-
-// The block's head and row block from its place in the launch order: the
-// heads in groups of kHeadGroup, each group's blocks launched before the
-// next group's, so that the rows they all stream (a few MB) stay in L2; in
-// a group, row blocks by `order` (0 the longest under causal), heads
-// fastest.  A grid of one block per (head, row block) of every head at
-// once would stream every head's rows: more than L2 holds.
-__device__ __forceinline__ void block_coords(int heads, int row_blocks, int& bh, int& order) {
-  const int g0 = blockIdx.x / (kHeadGroup * row_blocks) * kHeadGroup;
-  const int n = min(kHeadGroup, heads - g0);
-  const int r = blockIdx.x - g0 * row_blocks;
-  order = r / n;
-  bh = g0 + r % n;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<unsigned long long>(p) + 1023) &
-                                          ~1023ull);
 }
 
 __device__ __forceinline__ void init_barriers(unsigned full0, unsigned empty0, unsigned res) {
@@ -436,27 +416,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int n = 0; n < kNC; ++n) reg_fence(dqa[n]);
     store_rows<D>(dq + static_cast<long long>(bh) * t_len * D, dqa, row0, row1, t_len, c);
   }
-}
-
-// A [bh][len][d] bf16 tensor as a 3-D tensor map, boxes of `rows` rows and
-// 64 columns: rows past a head's end and columns past d read as zero.
-bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* p, int bh, int len, int d,
-                 int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(len),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(len) * d * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  return encode_bf16(fn, map, p, 3, dims, strides, box);
-}
-
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done = true;
-  return err;
 }
 
 template <int D>

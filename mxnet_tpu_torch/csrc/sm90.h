@@ -1,7 +1,9 @@
 // Hopper (sm_90a) pieces shared by the TMA + wgmma kernels of this library:
 // mbarriers, TMA tensor and bulk loads, the TMA store, wgmma group waits,
-// register rebalancing between warpgroups, and the host-side encoding of
-// bf16 tensor maps with the 128-byte swizzle the wgmma descriptors name.
+// register rebalancing between warpgroups, the head-grouped launch order of
+// the flash kernels, and on the host the encoding of bf16 tensor maps with
+// the 128-byte swizzle the wgmma descriptors name and the opt-in to more
+// than 48 KB of dynamic shared memory.
 #pragma once
 
 #include <cuda.h>
@@ -121,6 +123,34 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<unsigned long long>(p) + 1023) &
+                                          ~1023ull);
+}
+
+// Heads whose blocks a flash kernel launches together.
+constexpr int kHeadGroup = 8;
+
+// The head and row block of work unit `u` (one per head and row block) in
+// the launch order: the heads in groups of kHeadGroup, each group's units
+// before the next group's, so that the rows they all stream (a few MB) stay
+// in L2; in a group, row blocks by `order` (0 the longest under causal),
+// heads fastest.  Units of every head at once would stream every head's
+// rows: more than L2 holds.
+__device__ __forceinline__ void unit_coords(int u, int heads, int row_blocks, int& bh,
+                                            int& order) {
+  const int g0 = u / (kHeadGroup * row_blocks) * kHeadGroup;
+  const int n = min(kHeadGroup, heads - g0);
+  const int r = u - g0 * row_blocks;
+  order = r / n;
+  bh = g0 + r % n;
+}
+
+// The same for a grid of one block per unit, launched in that order.
+__device__ __forceinline__ void block_coords(int heads, int row_blocks, int& bh, int& order) {
+  unit_coords(blockIdx.x, heads, row_blocks, bh, order);
+}
+
 // cuTensorMapEncodeTiled is a driver entry point; it is fetched through the
 // runtime so a library needs no link against libcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -157,6 +187,28 @@ inline bool encode_bf16(EncodeTiled fn, CUtensorMap* map, const void* ptr, int r
             strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A [bh][len][d] bf16 tensor as a 3-D tensor map, boxes of `rows` rows and
+// 64 columns: rows past a head's end and columns past d read as zero.
+inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* p, int bh, int len,
+                        int d, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(len) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return encode_bf16(fn, map, p, 3, dims, strides, box);
+}
+
+// Let `kern` take `bytes` of dynamic shared memory, once a process.
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done = true;
+  return err;
 }
 
 }  // namespace mxtpu

@@ -22,10 +22,11 @@ the backward's errors against the plain version and, beside the plain
 version's own and SDPA's, against a float64 reference.
 
 On bf16 inputs (the bench LM's training dtype) the flash forward is the
-kernel of ``csrc/flash_bf16.cu`` and the backward's two passes those of
-``csrc/flash_bwd_bf16_sm90.cu`` (a TMA producer warp feeding two wgmma
-warpgroups through an mbarrier ring; at head dim 128 the first bf16 pair
-of ``csrc/flash_bf16.cu``): one bf16 wgmma per product with fp32 sums, the
+kernel of ``csrc/flash_fwd_bf16_sm90.cu`` and the backward's two passes
+those of ``csrc/flash_bwd_bf16_sm90.cu`` (each a TMA producer warp feeding
+two wgmma warpgroups through an mbarrier ring; at head dim 128 the first
+bf16 kernels of ``csrc/flash_bf16.cu``, :func:`fwd_kernel`,
+:func:`bwd_kernels`): one bf16 wgmma per product with fp32 sums, the
 softmax in fp32, ``p`` and ``ds`` rounded to bf16 where the Pallas kernels
 round them; ``o``, ``dq``, ``dk`` and ``dv`` come out in bf16, ``lse`` in
 fp32.
@@ -44,9 +45,9 @@ from .._build import Kernel, device_kind, require
 __all__ = ["FLASH_BWD_DKDV", "FLASH_BWD_DKDV_BF16", "FLASH_BWD_DKDV_BF16_V1",
            "FLASH_BWD_DKDV_SIMT", "FLASH_BWD_DQ", "FLASH_BWD_DQ_BF16",
            "FLASH_BWD_DQ_BF16_V1", "FLASH_BWD_DQ_SIMT",
-           "FLASH_FWD_BF16", "FLASH_FWD_SIMT", "FLASH_PREFILL",
-           "PAGED_DECODE", "PAGED_DECODE_V1", "bwd_kernels", "decode_splits",
-           "fused_flash_bwd", "fused_flash_fwd",
+           "FLASH_FWD_BF16", "FLASH_FWD_BF16_V1", "FLASH_FWD_SIMT",
+           "FLASH_PREFILL", "PAGED_DECODE", "PAGED_DECODE_V1", "bwd_kernels",
+           "decode_splits", "fused_flash_bwd", "fused_flash_fwd", "fwd_kernel",
            "fused_paged_decode_attention", "fused_prefill_attention"]
 
 _HEAD_DIMS = (32, 64, 128)
@@ -78,12 +79,12 @@ FLASH_BWD_DKDV_SIMT = Kernel(
 FLASH_BWD_DQ_SIMT = Kernel(
     "flash_bwd_dq_simt", "attention_kernels", "mxtpu_flash_bwd_dq_simt",
     [_P] * 7 + [_I] * 6 + [_F])
-# The bf16 flash forward (csrc/flash_bf16.cu) and backward pair
-# (csrc/flash_bwd_bf16_sm90.cu: TMA producer warp, mbarrier ring, head dims
-# 32 and 64), with the fp32 entries' arguments; o, dq, dk, dv bf16, lse and
-# delta fp32.
+# The bf16 flash forward (csrc/flash_fwd_bf16_sm90.cu) and backward pair
+# (csrc/flash_bwd_bf16_sm90.cu), each a TMA producer warp and an mbarrier
+# ring, head dims 32 and 64, with the fp32 entries' arguments; o, dq, dk, dv
+# bf16, lse and delta fp32.
 FLASH_FWD_BF16 = Kernel(
-    "flash_fwd_bf16", "flash_bf16", "mxtpu_flash_fwd_bf16",
+    "flash_fwd_bf16", "flash_fwd_bf16_sm90", "mxtpu_flash_fwd_bf16",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F])
 FLASH_BWD_DKDV_BF16 = Kernel(
     "flash_bwd_dkdv_bf16", "flash_bwd_bf16_sm90", "mxtpu_flash_bwd_dkdv_bf16",
@@ -91,11 +92,16 @@ FLASH_BWD_DKDV_BF16 = Kernel(
 FLASH_BWD_DQ_BF16 = Kernel(
     "flash_bwd_dq_bf16", "flash_bwd_bf16_sm90", "mxtpu_flash_bwd_dq_bf16",
     [_P] * 7 + [_I] * 6 + [_F])
-# The first bf16 backward pair (csrc/flash_bf16.cu), with the arguments
-# above: the path for D = 128, where the redesigned pair's consumers would
-# need more than their 232 registers a thread (dK and dV totals of 64
-# columns each, S^T, dP^T and the P, dS fragments of the accumulation in
-# flight); a run on the card also times them beside the redesigned pair.
+# The first bf16 forward and backward pair (csrc/flash_bf16.cu), with the
+# arguments above: the path for D = 128, which the redesigned kernels do
+# not take (the forward's consumers fill the 128 registers ptxas plans
+# them in at D = 64, and O of 128 columns takes 32 more; the pair's would
+# need more than their 232: dK and dV totals of 64 columns each, S^T, dP^T
+# and the P, dS fragments of the accumulation in flight); a run on the
+# card also times them beside the redesigned kernels.
+FLASH_FWD_BF16_V1 = Kernel(
+    "flash_fwd_bf16_v1", "flash_bf16", "mxtpu_flash_fwd_bf16_v1",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F])
 FLASH_BWD_DKDV_BF16_V1 = Kernel(
     "flash_bwd_dkdv_bf16_v1", "flash_bf16", "mxtpu_flash_bwd_dkdv_bf16_v1",
     [_P] * 8 + [_I] * 6 + [_F])
@@ -168,19 +174,32 @@ def fused_flash_fwd(q, k, v, causal=True, sm_scale=None):
     input).  ``causal`` masks key ``j`` from query ``i`` when ``j > i``.
 
     CPU tensors: :func:`~mxnet_tpu_torch.ops.attention.flash_fwd_plain`.
-    CUDA tensors: the flash kernel of their dtype (contiguous, all of one
-    dtype, D in 32/64/128)."""
+    CUDA tensors: the flash kernel of their dtype and head dim
+    (:func:`fwd_kernel`; contiguous, all of one dtype, D in 32/64/128).
+    The bf16 kernel at D 32 and 64 hands out its work from a counter of
+    its own on the device, so its launches on one device must not run
+    concurrently on two streams."""
     if device_kind((q, k, v)) == "cpu":
         return _att.flash_fwd_plain(q, k, v, causal, sm_scale)
     dtype = _check_flash("flash_prefill", q, k, v, dtypes=_FLASH_DTYPES)
     bsz, heads, t_len, dim = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    kernel = FLASH_PREFILL if dtype == torch.float32 else FLASH_FWD_BF16
-    kernel.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), lse.data_ptr(), bsz, heads, t_len,
-                  k.shape[2], dim, int(bool(causal)), _att._scale(q, sm_scale))
+    fwd_kernel(dim, dtype).launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), bsz, heads, t_len, k.shape[2], dim, int(bool(causal)),
+        _att._scale(q, sm_scale))
     return out, lse
+
+
+def fwd_kernel(head_dim, dtype=torch.float32):
+    """The forward's kernel for ``head_dim`` and the inputs' ``dtype``: on
+    fp32 the 3xTF32 prefill kernel; on bf16 the redesigned kernel for 32
+    and 64, the first bf16 kernel for 128, which the redesigned one does
+    not take."""
+    if dtype == torch.float32:
+        return FLASH_PREFILL
+    return FLASH_FWD_BF16_V1 if head_dim == 128 else FLASH_FWD_BF16
 
 
 def bwd_kernels(head_dim, dtype=torch.float32):

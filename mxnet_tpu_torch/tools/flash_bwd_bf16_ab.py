@@ -99,10 +99,10 @@ _ELEMENTWISE_ONLY = [
     ("      product_rs<D, kBS>(dqa, da, ks);\n", "      consume(da);\n")]
 
 
-def _patched(src, patches):
+def _patched(src, patches, name=_SOURCE):
     for old, new in patches:
         if src.count(old) != 1:
-            raise RuntimeError("patch does not apply to %s: %r" % (_SOURCE, old[:60]))
+            raise RuntimeError("patch does not apply to %s: %r" % (name, old[:60]))
         src = src.replace(old, new)
     return src
 
@@ -119,11 +119,12 @@ def builds(other=None):
     return out
 
 
-def _compile(sources):
-    """Build each source into its own library at once; print ptxas's C75xx
-    lines and each kernel's registers and spills; return ``{label: ctypes
-    library}``."""
-    out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "flash_bwd_bf16_ab")
+def _compile(sources, out_name="flash_bwd_bf16_ab", kernels=r"flash_bwd_\w+?_kernel"):
+    """Build each source into its own library at once, under
+    ``build/<out_name>/``; print ptxas's C75xx lines and the registers and
+    spills of each kernel whose name matches ``kernels``; return ``{label:
+    ctypes library}``."""
+    out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), out_name)
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for i, (label, src) in enumerate(sources.items()):
@@ -146,7 +147,7 @@ def _compile(sources):
         kernel = None
         for line in log.splitlines():
             entry = re.search(
-                r"Compiling entry function '\w*?(flash_bwd_\w+?_kernel)ILi(\d+)E", line)
+                r"Compiling entry function '\w*?(%s)ILi(\d+)E" % kernels, line)
             if entry:
                 kernel = "%s<%s>" % entry.groups()
             elif kernel and ("spill" in line or "registers" in line):

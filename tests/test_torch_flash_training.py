@@ -187,7 +187,10 @@ def test_backward_kernels_by_head_dim():
     CUDA-core pair, counted under its own names.  bf16: D 32 and 64 take
     the redesigned pair (csrc/flash_bwd_bf16_sm90.cu), never the first
     (``_v1``) one; D 128, past the redesigned consumers' registers, the
-    first pair, counted under its own names."""
+    first pair, counted under its own names.  The forward likewise: fp32
+    takes the prefill kernel at every D; bf16 the redesigned forward
+    (csrc/flash_fwd_bf16_sm90.cu) at D 32 and 64 and the first one
+    (``_v1``, csrc/flash_bf16.cu) at D 128."""
     for d in (32, 64):
         assert pak.bwd_kernels(d) == (pak.FLASH_BWD_DKDV, pak.FLASH_BWD_DQ)
     assert pak.bwd_kernels(128) == (pak.FLASH_BWD_DKDV_SIMT,
@@ -208,6 +211,18 @@ def test_backward_kernels_by_head_dim():
              + pak.bwd_kernels(128, bf16)]
     assert names == ["flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
                      "flash_bwd_dkdv_bf16_v1", "flash_bwd_dq_bf16_v1"]
+    for d in (32, 64, 128):
+        assert pak.fwd_kernel(d) is pak.FLASH_PREFILL
+        assert pak.fwd_kernel(d, torch.float32).name == "flash_prefill"
+    for d in (32, 64):
+        kern = pak.fwd_kernel(d, bf16)
+        assert kern is pak.FLASH_FWD_BF16
+        assert (kern.name, kern.lib) == ("flash_fwd_bf16",
+                                         "flash_fwd_bf16_sm90")
+        assert not kern.name.endswith("_v1")
+    kern = pak.fwd_kernel(128, bf16)
+    assert kern is pak.FLASH_FWD_BF16_V1
+    assert (kern.name, kern.lib) == ("flash_fwd_bf16_v1", "flash_bf16")
 
 
 def test_backward_plain_agrees_with_autograd_of_the_forward():
@@ -232,7 +247,8 @@ def test_cpu_training_path_launches_no_kernel():
     counts = launch_counts()
     assert counts["flash_prefill"] == counts["flash_bwd_dkdv"] \
         == counts["flash_bwd_dq"] == counts["flash_fwd_simt"] \
-        == counts["flash_bwd_dkdv_simt"] == counts["flash_bwd_dq_simt"] == 0
+        == counts["flash_bwd_dkdv_simt"] == counts["flash_bwd_dq_simt"] \
+        == counts["flash_fwd_bf16"] == counts["flash_fwd_bf16_v1"] == 0
 
 
 def test_flash_wrappers_refuse_other_devices():
