@@ -15,7 +15,9 @@ Phases, each fatal on failure:
    [8, 2048, 1024], the momentum step over every parameter of the bench
    model; the 1x1-conv dgrad at each of the 12 shapes of the bench ResNet-50
    step in bf16, one fp32 shape and ragged ones; the probe's two epilogue
-   GEMMs at its five shapes) and at a ragged shape, with its time, the plain
+   GEMMs at its five shapes, forms A and B with and without the residual
+   and C, and at ragged shapes of both routes) and at a ragged shape, with
+   its time, the plain
    version's time, the time of one library call computing the same function
    where there is one, and the least time the card could take (its bound).
    The flash forward and the backward's two passes (3xTF32 on tensor
@@ -24,14 +26,16 @@ Phases, each fatal on failure:
    bound is the latter); two backward calls on the same inputs must give
    the same bits, and the backward's errors against float64 are printed
    beside the plain version's and SDPA's, at T 2048 and 4096; the bf16
-   dgrad (TMA + wgmma) in turns with the earlier wmma core, shape by
-   shape, and each dgrad shape is checked to reach the kernel its shape
-   takes.  The LayerNorm op (one warp a row, registers) in fp32, bf16 and
+   dgrad and the probe's two epilogue GEMMs (TMA + wgmma) in turns with
+   the earlier wmma core, shape by shape, beside the probe's torch form,
+   and each shape is checked to reach the kernel its shape and type take.  The LayerNorm op (one warp a row, registers) in fp32, bf16 and
    fp16 at the training shape and at a ragged C, in turns with its first
    design (v1); the paged decode (split over the context, partials merged
    in order) in fp32 and with bf16 pools at the lane's 8 sequences, at
    B 1 and at a context of 1, two calls giving equal bits, in turns with
-   its first design (v1).  The bf16 flash forward and backward pair (the
+   its first design (v1), and 50 rounds of two launches with different
+   inputs on two streams at once, each bitwise equal to its one-stream
+   output (the kernels' work counters are per stream).  The bf16 flash forward and backward pair (the
    bench LM's dtype) against their plain versions in bf16 at the training
    shape, at ragged T, Tk != T and head dims 32 and 128 (the bf16 class for
    o, dq, dk, dv; 1e-4 for lse), two backward calls giving equal bits, the
@@ -41,7 +45,8 @@ Phases, each fatal on failure:
    forward and the backward pair (TMA producer warp, mbarrier ring) in
    turns with the first bf16 forward and pair (v1), which keep head dim
    128, the forward's o and lse bitwise equal to v1's on every shape
-   checked.  The earlier kernels kept for these timings must launch on no
+   checked; the forward on two streams at once as the paged decode, at
+   the training shape and at [1, 4, 2048, 64].  The earlier kernels kept for these timings must launch on no
    main path.
 4. The generation lane at the full width of the LM the repo benches
    (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
@@ -86,7 +91,9 @@ Phases, each fatal on failure:
    never the wmma core), the idle share and time by kernel and by op.
 9. The port's bottleneck probe (``mxnet_tpu_torch.tools.bottleneck_probe
    .main``): cuBLAS plus elementwise against the epilogue kernels at its
-   five ResNet-50 shapes.
+   five ResNet-50 shapes; its calls must launch the TMA + wgmma kernels
+   (``mm_epilogue`` 1020 times, ``mm_with_stats`` 510) and the wmma cores
+   never.
 10. One JSON line ``{"kernels": [...]}`` with each kernel's launches (its
     paths'; every kernel must have launched), error and times.
 11. The card line again and, last, ``{"ok": true, "device": {...}}``.
@@ -248,6 +255,40 @@ def max_err(got, want, tol, name):
         raise SmokeError("%s kernel disagrees with its plain version "
                          "(max |err| %.3e)" % (name, err))
     return err
+
+
+def two_streams(fn_a, fn_b, rounds, name):
+    """``fn_a`` and ``fn_b`` (each returning a tensor or a tuple of them,
+    on different inputs) launched back to back on two side streams,
+    ``rounds`` times with no wait between rounds, so that their launches
+    overlap where the card has room; every output must equal the output of
+    the same call on one stream bit for bit (the kernels' work counters
+    are per stream)."""
+    import torch
+
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    want = (as_tuple(fn_a()), as_tuple(fn_b()))
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    main_stream = torch.cuda.current_stream()
+    outs = []
+    for _ in range(rounds):
+        pair = []
+        for st, fn in zip(streams, (fn_a, fn_b)):
+            st.wait_stream(main_stream)
+            with torch.cuda.stream(st):
+                pair.append(as_tuple(fn()))
+        outs.append(pair)
+    torch.cuda.synchronize()
+    for pair in outs:
+        for got, exp in zip(pair, want):
+            if not all(torch.equal(g, e) for g, e in zip(got, exp)):
+                raise SmokeError("%s: a launch on one of two streams differs "
+                                 "from the one-stream output" % name)
+    print("  %s: %d rounds on two streams at once, every output bitwise "
+          "equal to its one-stream output" % (name, rounds))
 
 
 # ----------------------------------------------------------------- phase 3
@@ -419,6 +460,13 @@ def check_paged_decode(dev, cfg, randn):
                                              BLOCK_SIZE, sms),
                             ak.decode_splits(1, heads, max_blocks,
                                              BLOCK_SIZE, sms), sms))
+    # the lane's shape (splits > 1) on two streams, with other q, k and v
+    # steps and another layer's pools on the second
+    other = tuple(randn(bsz, heads, d) for _ in range(3)) + (
+        k_pages[1], v_pages[1], bt, cl)
+    two_streams(lambda: kernel(lane), lambda: kernel(other), 50,
+                "paged decode B=8")
+    del other
 
     def layer(args, i):
         return args[:3] + (k_pages[i % layers], v_pages[i % layers]) \
@@ -926,6 +974,19 @@ def check_bf16_flash(dev, cfg):
     o, lse, (dq, dk, dv), (o_p, want), errs = check(
         q, k, v, do, True, None, "B=%d T=%d" % (b, t))
     err_o, err_dq, err_dk, err_dv = max(errs[:2]), errs[2], errs[3], errs[4]
+    # the forward on two streams with other inputs on the second: at the
+    # training shape (each launch's blocks fill the card, so the second
+    # starts as the first's blocks finish) and at [1, 4, 2048, 64] (44
+    # units: both launches' blocks fit on the card at once)
+    q2, k2, v2 = (randn(b, heads, t, d) for _ in range(3))
+    two_streams(lambda: ak.fused_flash_fwd(q, k, v, True),
+                lambda: ak.fused_flash_fwd(q2, k2, v2, True), 8,
+                "bf16 flash forward [%d, %d, %d, %d]" % (b, heads, t, d))
+    small = [x[:1, :4].contiguous() for x in (q, k, v, q2, k2, v2)]
+    two_streams(lambda: ak.fused_flash_fwd(*small[:3], True),
+                lambda: ak.fused_flash_fwd(*small[3:], True), 50,
+                "bf16 flash forward [1, 4, %d, %d]" % (t, d))
+    del q2, k2, v2, small
     # controls of the gates: the plain versions with the last tile of 64
     # keys dropped (forward, dQ: the last 64 queries lose their last key
     # tile) or of 64 queries dropped (dK, dV: do zeroed there) must fail
@@ -1201,12 +1262,26 @@ def rel_err(got, want, tol, name):
     return err
 
 
+def launched_by(kernel, kernels, fn, *args):
+    """``fn(*args)``, checking that the call launched ``kernel`` once and
+    none of the other ``kernels`` (the routes its wrapper chooses from)."""
+    before = [k.launches for k in kernels]
+    out = fn(*args)
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    if got != [int(k is kernel) for k in kernels]:
+        raise SmokeError("%s at %s, %s: launches %s of %s, not one of %s"
+                         % (fn.__name__, tuple(args[0].shape),
+                            tuple(args[1].shape), got,
+                            [k.name for k in kernels], kernel.name))
+    return out
+
+
 def check_gemm_kernels(dev):
     """Rows 9-11: the 1x1-conv dgrad at every dgrad shape of the bench
     ResNet-50 step (bf16), at an fp32 shape and at ragged ones; the
-    probe's two epilogue kernels at its five shapes.  Returns the kernel
-    rows of the JSON line: row 9's times are summed over one step's 33
-    dgrads, rows 10-11's over one call at each probe shape."""
+    probe's two epilogue kernels (:func:`check_probe_kernels`).  Returns
+    the kernel rows of the JSON line: row 9's times are summed over one
+    step's 33 dgrads, rows 10-11's over one call at each probe shape."""
     import torch
 
     from mxnet_tpu_torch.ops.fused import conv_kernels as ck
@@ -1224,17 +1299,8 @@ def check_gemm_kernels(dev):
     err9 = 0.0
 
     def dgrad_by(kernel, dy, w, dt):
-        """The wrapper's dx, checking that ``kernel`` (and only it) ran."""
-        before = (ck.CONV1X1_DGRAD.launches, ck.CONV1X1_DGRAD_CORE.launches)
-        dx = ck.conv1x1_dgrad(dy, w, dt)
-        after = (ck.CONV1X1_DGRAD.launches, ck.CONV1X1_DGRAD_CORE.launches)
-        want = tuple(b + (k is kernel) for b, k in zip(
-            before, (ck.CONV1X1_DGRAD, ck.CONV1X1_DGRAD_CORE)))
-        if after != want:
-            raise SmokeError("dgrad %s %s: launches went %s -> %s, not to %s"
-                             % (tuple(dy.shape) + (w.shape[1],), dt, before,
-                                after, kernel.name))
-        return dx
+        return launched_by(kernel, (ck.CONV1X1_DGRAD, ck.CONV1X1_DGRAD_CORE),
+                           ck.conv1x1_dgrad, dy, w, dt)
 
     def core(dy, w):
         """The cp.async + wmma core on a bf16 dgrad the TMA kernel takes
@@ -1304,57 +1370,185 @@ def check_gemm_kernels(dev):
         else "operations",
         "library_ms": tot["library_ms"]}]
 
-    # rows 10-11 at the probe's shapes: A (res, ReLU), A without res, B
-    # (dy @ w^T + dres, no ReLU), B without res; and the product + stats
+    rows += check_probe_kernels(dev, randn, gen)
+    return rows
+
+
+def check_probe_kernels(dev, randn, gen):
+    """Rows 10-11, the probe's two epilogue GEMMs, at its five shapes: forms
+    A (``relu(scale * x @ w + bias + res)``) and B (``dy @ w^T + dres``), each
+    with and without the residual, and C (``x @ w`` plus the column sums),
+    each through its wrapper (which must reach the TMA + wgmma kernel)
+    against the plain version, timed beside the wmma core in turns, the
+    plain version and the probe's torch form; then ragged shapes through
+    both routes.  Returns the two JSON rows: times summed over form A with
+    the residual (``mm_epilogue``) and form C (``mm_with_stats``) at the five
+    shapes."""
+    import torch
+
+    from mxnet_tpu_torch.tools import bottleneck_probe as bp
+
+    bf = torch.bfloat16
+    kernels = (bp.MM_EPILOGUE, bp.MM_EPILOGUE_CORE, bp.MM_WITH_STATS,
+               bp.MM_WITH_STATS_CORE)
+
+    def by(kernel, fn, *args):
+        return launched_by(kernel, kernels, fn, *args)
+
+    def epi_core(x, w, scale, bias, res, relu):
+        """The wmma core on a call the TMA kernel takes (in turns only)."""
+        y = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype, device=dev)
+        bp.MM_EPILOGUE_CORE.launch(
+            dev, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), None if res is None else res.data_ptr(),
+            y.data_ptr(), x.shape[0], x.shape[1], w.shape[1], int(relu), 1)
+        return y
+
+    def stats_core(x, w):
+        m, n = x.shape[0], w.shape[1]
+        y = torch.empty((m, n), dtype=x.dtype, device=dev)
+        parts = torch.empty((2, -(-m // 128), n), device=dev)
+        bp.MM_WITH_STATS_CORE.launch(
+            dev, x.data_ptr(), w.data_ptr(), y.data_ptr(), parts[0].data_ptr(),
+            parts[1].data_ptr(), m, x.shape[1], n, 1)
+        s1, s2 = parts.sum(1)
+        return y, s1, s2
+
+    def check_stats(got, want, tol, tag):
+        return max(max_err(got[0], want[0], tol, "C y " + tag),
+                   rel_err(got[1], want[1], GRAD_TOL, "C sum " + tag),
+                   rel_err(got[2], want[2], GRAD_TOL, "C sum^2 " + tag))
+
     epi = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
            "bytes_ms": 0.0, "ops_ms": 0.0}
     st = dict(epi)
-
-    def add_bound(d, nbytes, flops):
-        nb, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-        d["bound_ms"] += nb
-        d["bytes_ms" if by == "bytes" else "ops_ms"] += nb
-
+    forms = ("A", "A no res", "B", "B no res", "C")
+    tot = {f: [0.0] * 4 for f in forms}   # kernel, core, torch form, bound
+    print("  [mm_epilogue, mm_with_stats, bf16: (M, K, N) form, tile N: TMA "
+          "+ wgmma kernel / the earlier wmma core (in turns) / plain / the "
+          "probe's torch form / bound ms (share of the bound)]")
     for name, m, k, n in bp.SHAPES:
         x, w = randn(m, k), randn(k, n, scale=0.05)
         scale = torch.rand(n, generator=gen, device=dev) + 0.5
         bias = torch.randn(n, generator=gen, device=dev)
         res = randn(m, n)
-        for r_, relu in ((res, True), (None, True)):
-            epi["err"] = max(epi["err"], max_err(
-                bp.mm_epilogue(x, w, scale, bias, r_, relu),
-                bp.mm_epilogue_plain(x, w, scale, bias, r_, relu), BF16_TOL,
-                "A %s%s" % (name, "" if r_ is not None else " no res")))
         dy, dres, wt = randn(m, n), randn(m, k), w.t().contiguous()
         ones = torch.ones(k, device=dev)
         zeros = torch.zeros(k, device=dev)
-        for r_ in (dres, None):
-            epi["err"] = max(epi["err"], max_err(
-                bp.mm_epilogue(dy, wt, ones, zeros, r_, False),
-                bp.mm_epilogue_plain(dy, wt, ones, zeros, r_, False),
-                BF16_TOL, "B %s%s" % (name, "" if r_ is not None
-                                      else " no res")))
-        y, s1, s2 = bp.mm_with_stats(x, w)
-        y0, t1, t2 = bp.mm_with_stats_plain(x, w)
-        st["err"] = max(st["err"], max_err(y, y0, BF16_TOL, "C y " + name),
-                        rel_err(s1, t1, GRAD_TOL, "C sum " + name),
-                        rel_err(s2, t2, GRAD_TOL, "C sum^2 " + name))
-        epi["ms"] += cuda_ms(lambda j: bp.mm_epilogue(
-            x, w, scale, bias, res, True), 20)
-        epi["plain_ms"] += cuda_ms(lambda j: bp.mm_epilogue_plain(
-            x, w, scale, bias, res, True), 3)
-        add_bound(epi, (m * k + k * n + 2 * m * n) * 2 + 8 * n,
-                  2 * m * k * n + 4 * m * n)
-        st["ms"] += cuda_ms(lambda j: bp.mm_with_stats(x, w), 20)
-        st["plain_ms"] += cuda_ms(lambda j: bp.mm_with_stats_plain(x, w), 3)
-        add_bound(st, (m * k + k * n + m * n) * 2 + 8 * n,
-                  2 * m * k * n + 3 * m * n)
-        del x, w, res, dy, dres, wt, y, y0
+        # form: (wrapper args, relu, the probe's torch form, bytes, flops)
+        cases = {
+            "A": ((x, w, scale, bias, res), True, lambda j: torch.relu(
+                torch.matmul(x, w).float() * scale + bias + res.float()).to(
+                    bf), (m * k + k * n + 2 * m * n) * 2 + 8 * n,
+                2 * m * k * n + 4 * m * n),
+            "A no res": ((x, w, scale, bias, None), True, lambda j: torch.relu(
+                torch.matmul(x, w).float() * scale + bias).to(bf),
+                (m * k + k * n + m * n) * 2 + 8 * n, 2 * m * k * n + 3 * m * n),
+            "B": ((dy, wt, ones, zeros, dres), False, lambda j: (
+                torch.matmul(dy, wt).float() + dres.float()).to(bf),
+                (m * n + n * k + 2 * m * k) * 2 + 8 * k,
+                2 * m * k * n + 3 * m * k),
+            "B no res": ((dy, wt, ones, zeros, None), False,
+                         lambda j: torch.matmul(dy, wt),
+                         (m * n + n * k + m * k) * 2 + 8 * k,
+                         2 * m * k * n + 2 * m * k)}
+        for form, (args, relu, torch_form, nbytes, flops) in cases.items():
+            a0, a1 = args[:2]
+            got = by(bp.MM_EPILOGUE, bp.mm_epilogue, *args, relu)
+            want = bp.mm_epilogue_plain(*args, relu)
+            err = max_err(got, want, BF16_TOL, "%s %s" % (form, name))
+            max_err(epi_core(*args, relu), want, BF16_TOL,
+                    "%s %s core" % (form, name))
+            tc, t = in_turns(lambda j: epi_core(*args, relu),
+                             lambda j: bp.mm_epilogue(*args, relu), 20)
+            tp = cuda_ms(lambda j: bp.mm_epilogue_plain(*args, relu), 3)
+            tt = cuda_ms(torch_form, 20)
+            nb, bb = bound(nbytes, flops, PEAK_BF16_FLOPS)
+            print("    (%d, %d, %d) %s, N %d: %.4f / %.4f / %.4f / %.4f / %.4f "
+                  "(%s; %.0f%%)" % (a0.shape[0], a0.shape[1], a1.shape[1],
+                                   form, tile_n(a0, a1), t, tc, tp,
+                                   tt, nb, bb, 100 * nb / t))
+            for i, v in enumerate((t, tc, tt, nb)):
+                tot[form][i] += v
+            if form == "A":
+                epi["ms"] += t
+                epi["plain_ms"] += tp
+                epi["bound_ms"] += nb
+                epi["bytes_ms" if bb == "bytes" else "ops_ms"] += nb
+            epi["err"] = max(epi["err"], err)
+            del got, want
+        got = by(bp.MM_WITH_STATS, bp.mm_with_stats, x, w)
+        want = bp.mm_with_stats_plain(x, w)
+        st["err"] = max(st["err"], check_stats(got, want, BF16_TOL, name))
+        check_stats(stats_core(x, w), want, BF16_TOL, name + " core")
+        tc, t = in_turns(lambda j: stats_core(x, w),
+                         lambda j: bp.mm_with_stats(x, w), 20)
+        tp = cuda_ms(lambda j: bp.mm_with_stats_plain(x, w), 3)
+
+        def torch_c(j):
+            y = torch.matmul(x, w)
+            yf = y.float()
+            return y, yf.sum(0), (yf * yf).sum(0)
+
+        tt = cuda_ms(torch_c, 20)
+        nb, bb = bound((m * k + k * n + m * n) * 2 + 8 * n,
+                       2 * m * k * n + 3 * m * n, PEAK_BF16_FLOPS)
+        print("    (%d, %d, %d) C, N %d: %.4f / %.4f / %.4f / %.4f / %.4f "
+              "(%s; %.0f%%)" % (m, k, n, tile_n(x, w), t, tc, tp, tt,
+                               nb, bb, 100 * nb / t))
+        for i, v in enumerate((t, tc, tt, nb)):
+            tot["C"][i] += v
+        st["ms"] += t
+        st["plain_ms"] += tp
+        st["bound_ms"] += nb
+        st["bytes_ms" if bb == "bytes" else "ops_ms"] += nb
+        del x, w, res, dy, dres, wt, got, want
+    for form in forms:
+        t, tc, tt, nb = tot[form]
+        print("    form %-8s summed over the 5 shapes: kernel %.4f ms, the "
+              "earlier wmma core %.4f ms, the torch form %.4f ms, bound "
+              "%.4f ms (share %.0f%%)" % (form, t, tc, tt, nb, 100 * nb / t))
+
+    # ragged shapes, each with the kernel its shape and type take: M no
+    # multiple of 128 (a group's rows wholly past M at 4104), K no multiple
+    # of 64, N no multiple of 64, a chunk wholly past N (TMA, tiles of 64,
+    # 128 and 256); K or N no multiple of 8, an 8-byte aligned x, fp32 (the
+    # core)
+    def ragged_x(m, k, dt, offset):
+        flat = randn(m * k + offset, dtype=dt)
+        return flat[offset:].view(m, k)
+
+    for (m, k, n), dt, offset, tma in (
+            ((1000, 64, 256), bf, 0, True), ((4104, 200, 72), bf, 0, True),
+            ((6280, 520, 200), bf, 0, True), ((50000, 96, 136), bf, 0, True),
+            ((1000, 60, 36), bf, 0, False), ((1000, 64, 256), bf, 4, False),
+            ((1000, 64, 256), torch.float32, 0, False),
+            ((776, 33, 65), torch.float32, 0, False)):
+        x, w = ragged_x(m, k, dt, offset), randn(k, n, scale=0.05, dtype=dt)
+        scale = torch.rand(n, generator=gen, device=dev) + 0.5
+        bias = torch.randn(n, generator=gen, device=dev)
+        res = randn(m, n, dtype=dt)
+        tol = BF16_TOL if dt == bf else GEMM_F32_TOL
+        tag = "(%d, %d, %d) %s%s" % (m, k, n, str(dt)[6:],
+                                     " x+%d" % offset if offset else "")
+        for r_, relu in ((res, True), (None, False)):
+            max_err(by(bp.MM_EPILOGUE if tma else bp.MM_EPILOGUE_CORE,
+                       bp.mm_epilogue, x, w, scale, bias, r_, relu),
+                    bp.mm_epilogue_plain(x, w, scale, bias, r_, relu), tol,
+                    "A %s%s" % (tag, "" if r_ is not None else " no res"))
+        check_stats(by(bp.MM_WITH_STATS if tma else bp.MM_WITH_STATS_CORE,
+                       bp.mm_with_stats, x, w),
+                    bp.mm_with_stats_plain(x, w), tol, tag)
+        print("    %s: %s, tile N %s" % (tag, "TMA + wgmma" if tma else
+                                        "the wmma core",
+                                        tile_n(x, w) if tma else "-"))
+        del x, w, res
+    rows = []
     for nm, d, src in (("mm_epilogue", epi, ":112"),
                        ("mm_with_stats", st, ":153")):
         rows.append({
             "name": nm, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/gemm_kernels.cu",
+            "source": "mxnet_tpu_torch/csrc/gemm_sm90.cu",
             "replaces": "tools/bottleneck_probe.py" + src,
             "max_abs_err": d["err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
@@ -1362,6 +1556,14 @@ def check_gemm_kernels(dev):
             else "operations",
             "library_ms": None})   # no one torch call fuses the epilogue
     return rows
+
+
+def tile_n(a, b):
+    """The tile N the wrappers give the TMA kernel for ``a @ b``."""
+    from mxnet_tpu_torch.ops.fused import conv_kernels as ck
+
+    return ck.tma_launch_shape(a.device, a.shape[0], a.shape[1],
+                               b.shape[1])[0]
 
 # ----------------------------------------------------------------- phase 4
 
@@ -1782,7 +1984,7 @@ _OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dkdv_bf16_v1_kernel", "flash_bwd_dq_bf16_v1_kernel",
                 "flash_bwd_dkdv_simt_kernel",
                 "flash_bwd_dq_simt_kernel", "layer_norm_op_kernel",
-                "sgd_mom_multi_kernel", "conv1x1_dgrad_sm90_kernel",
+                "sgd_mom_multi_kernel", "gemm_sm90_kernel",
                 "conv1x1_dgrad_kernel", "mm_epilogue_kernel",
                 "mm_stats_kernel")
 
@@ -2212,6 +2414,17 @@ def run_probe(card):
     rows = bottleneck_probe.main()
     counts = launch_counts()
     # -- end of the main path -------------------------------------------
+    # every call is bf16 at a shape TMA takes: the TMA + wgmma kernels run
+    # (2 warm-up and PROBE_STEPS calls a form, forms A and B on
+    # mm_epilogue), the wmma cores never
+    calls = (int(os.environ.get("PROBE_STEPS", "100")) + 2) \
+        * len(bottleneck_probe.SHAPES)
+    want = {"mm_epilogue": 2 * calls, "mm_with_stats": calls,
+            "mm_epilogue_core": 0, "mm_with_stats_core": 0}
+    got = {n: counts[n] for n in want}
+    print("  the probe's launches: %s" % json.dumps(got))
+    if got != want:
+        raise SmokeError("the probe's launches %s, not %s" % (got, want))
     for name, r in rows.items():
         print("  [%s] %s: A %.2fx, B %.2fx, C %.2fx (torch ms over kernel "
               "ms)" % (card, name, r["A_torch"] / r["A_kernel"],

@@ -29,7 +29,8 @@
 // one thread issues every load; warpgroups 1-3 the consumers, raised to 160
 // (setmaxnreg.inc), each owning 64 of a unit's 192 queries.
 // * Units.  A unit is one head's 192 queries.  The blocks claim units from
-//   a counter in global memory (g_units) in the order of unit_coords: a
+//   a counter in global memory (`units`, two ints the caller keeps per
+//   stream, which each launch leaves zero) in the order of unit_coords: a
 //   group of kHeadGroup heads at a time, so that the K and V the running
 //   units stream stay in L2, and the longest units (under causal) first
 //   within a group.  A grid of one block per unit spent a few microseconds
@@ -163,12 +164,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2], bool masked, i
   m1 = mx1;
 }
 
-// Work units claimed so far by the running launch, and the blocks of it
-// that have claimed past the last unit: the last of those sets both back to
-// zero, so every launch starts from zero.  Launches on one device must not
-// run concurrently (on two streams).
-__device__ int g_units[2];
-
 // The streamed tiles of the unit whose queries start at q0: every key, or
 // under causal the keys up to its last query.
 __device__ __forceinline__ int unit_tiles(int q0, int tk_len, int causal) {
@@ -180,14 +175,18 @@ __device__ __forceinline__ int unit_tiles(int q0, int tk_len, int causal) {
 // unit's lands while this one's ends; K and V stream past in tiles of 64
 // keys, through one ring across the units.  One block an SM, claiming
 // units in the launch order of unit_coords (the longest first within a
-// group of heads) from g_units as it goes.
+// group of heads) from units[0] as it goes.  units[0] counts the units
+// claimed so far and units[1] the blocks that have claimed past the last
+// unit: the last of those sets both back to zero, so every launch starts
+// from zero.  Two launches that may run at once (on two streams) need two
+// buffers.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
-                          float* __restrict__ lse, int heads, int t_len, int tk_len,
-                          int causal, float scale) {
+                          float* __restrict__ lse, int* __restrict__ units, int heads,
+                          int t_len, int tk_len, int causal, float scale) {
   constexpr int kNC = cols<D>() / 64;  // 64-column accumulators of O
   extern __shared__ unsigned char fwd_sm90_raw[];
   unsigned char* qres = align1024(fwd_sm90_raw);  // two Q tiles
@@ -226,7 +225,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // the unit of Q tile b, once the consumers are done with its last
         const int b = i & 1;
         mbar_wait(qempty0 + 8 * b, ((i >> 1) & 1) ^ 1);  // passes at once on lap 0
-        const int u = atomicAdd(&g_units[0], 1);
+        const int u = atomicAdd(&units[0], 1);
         unit_s[b] = u;
         if (u >= nunits) {  // the consumers read it and stop
           mbar_arrive(qfull0 + 8 * b);
@@ -247,9 +246,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load(smem_addr(vst + s * kTile), &map_v, fullv0 + 8 * s, 0, it * kBK, bh);
         }
       }
-      if (atomicAdd(&g_units[1], 1) == static_cast<int>(gridDim.x) - 1) {
-        atomicExch(&g_units[0], 0);
-        atomicExch(&g_units[1], 0);
+      if (atomicAdd(&units[1], 1) == static_cast<int>(gridDim.x) - 1) {
+        atomicExch(&units[0], 0);
+        atomicExch(&units[1], 0);
       }
     }
   } else {
@@ -384,7 +383,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, bf16* o, float* lse,
-                       int bh, int t_len, int tk_len, int causal, float scale,
+                       int* units, int bh, int t_len, int tk_len, int causal, float scale,
                        cudaStream_t stream) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
@@ -401,32 +400,35 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, bf16* o, flo
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
   const int grid = min(sms, bh * ((t_len + kRes - 1) / kRes));
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, kSmem, stream>>>(mq, mk, mv, o, lse, bh, t_len,
-                                                              tk_len, causal, scale);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, kSmem, stream>>>(mq, mk, mv, o, lse, units, bh,
+                                                              t_len, tk_len, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // The forward on bf16.  q, o: contiguous bf16 [B, H, T, D]; k, v: [B, H, Tk,
-// D], all 16-byte aligned; lse: fp32 [B, H, T] or nullptr.  head_dim 32 or
-// 64 (128 takes flash_bf16.cu's _v1 entry).  causal masks key j from query
-// i when j > i.
+// D], all 16-byte aligned; lse: fp32 [B, H, T] or nullptr; units: two
+// zero ints on the device, which the launch leaves zero and which no launch
+// running at the same time uses.  head_dim 32 or 64 (128 takes
+// flash_bf16.cu's _v1 entry).  causal masks key j from query i when j > i.
 MXTPU_API int mxtpu_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int bsz, int heads, int t_len, int tk_len,
-                                   int head_dim, int causal, float scale, void* stream) {
+                                   float* lse, int* units, int bsz, int heads, int t_len,
+                                   int tk_len, int head_dim, int causal, float scale,
+                                   void* stream) {
   if (bsz <= 0 || heads <= 0 || t_len <= 0 || tk_len <= 0)
     return static_cast<int>(cudaGetLastError());
+  if (units == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   auto* o_ = static_cast<bf16*>(o);
   const int bh = bsz * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
       return static_cast<int>(
-          launch_fwd<32>(q, k, v, o_, lse, bh, t_len, tk_len, causal, scale, s));
+          launch_fwd<32>(q, k, v, o_, lse, units, bh, t_len, tk_len, causal, scale, s));
     case 64:
       return static_cast<int>(
-          launch_fwd<64>(q, k, v, o_, lse, bh, t_len, tk_len, causal, scale, s));
+          launch_fwd<64>(q, k, v, o_, lse, units, bh, t_len, tk_len, causal, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

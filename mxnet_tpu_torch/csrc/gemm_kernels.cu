@@ -1,24 +1,30 @@
-// GEMM kernels of mxnet_tpu_torch: C[M, N] = A[M, K] @ B[K, N], both
-// operands row-major, fp32 accumulators, one of three epilogues.
+// The cp.async + wmma GEMM core of mxnet_tpu_torch: C[M, N] = A[M, K] @
+// B[K, N], both operands row-major, fp32 accumulators, one of three
+// epilogues.
 //
-// They replace two Pallas kernels of the JAX package and serve part of a
-// third, all products over the 1x1 convolutions of ResNet-50's bottleneck
-// blocks:
+// Its three kernels compute what three Pallas kernels of the JAX package
+// compute, all products over the 1x1 convolutions of ResNet-50's
+// bottleneck blocks:
 //
+//   conv1x1_dgrad_kernel  the dgrad dx = dy @ w of a 1x1 stride-1 NHWC conv
+//                         (mxnet_tpu/ops/nn.py _conv1x1_dgrad_pallas);
 //   mm_epilogue_kernel    tools/bottleneck_probe.py mm_epilogue:
 //                         relu?(scale * acc + bias [+ res]);
 //   mm_stats_kernel       tools/bottleneck_probe.py mm_with_stats: the
 //                         product plus per-block column sums of acc and
 //                         acc^2, taken on the fp32 accumulator before it is
 //                         rounded (a second pass in the wrapper adds the
-//                         per-block partials);
-//   conv1x1_dgrad_kernel  the dgrad dx = dy @ w of a 1x1 stride-1 NHWC conv
-//                         (mxnet_tpu/ops/nn.py _conv1x1_dgrad_pallas) in
-//                         fp32, and in bf16 where TMA cannot take the shape
-//                         (O or I no multiple of 8, or unaligned tensors);
-//                         every other bf16 dgrad, the bench ResNet-50's
-//                         included, runs the TMA + wgmma kernel of
-//                         gemm_sm90.cu.  The Python wrapper chooses by shape.
+//                         per-block partials).
+//
+// Every bf16 call whose shape TMA takes (K and N multiples of 8, 16-byte
+// aligned tensors), the bench ResNet-50's dgrads and every call of the
+// probe included, runs the TMA + wgmma kernel of gemm_sm90.cu instead, with
+// the same three epilogues.  This core serves what that kernel cannot
+// take: fp32, and bf16 with K or N no multiple of 8 or unaligned tensors;
+// the Python wrappers choose by shape and type alone
+// (ops/fused/conv_kernels.py tma_fits).  chip_smoke.py also times it in
+// turns with gemm_sm90.cu at the shapes the latter serves
+// (conv1x1_dgrad_core, mm_epilogue_core, mm_with_stats_core).
 //
 // What bounds them on an H100: at the bench's shapes (M = batch * H * W up
 // to 401408 rows, K and N 64..2048) most products do 64-256 flops per byte
@@ -38,8 +44,6 @@
 // zero-filled on load and masked on store; the vector path (cp.async of 16
 // bytes) needs K and N to be multiples of 16 bytes' worth of elements and
 // 16-byte aligned tensors, else a scalar path loads element by element.
-// gemm_sm90.cu shows what TMA, wgmma and a deeper ring buy over this core
-// at the dgrad's shapes (root PERF.md); the probe's epilogues keep it.
 #include <cuda_bf16.h>
 #include <mma.h>
 

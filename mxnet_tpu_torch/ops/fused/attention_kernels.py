@@ -30,6 +30,13 @@ bf16 kernels of ``csrc/flash_bf16.cu``, :func:`fwd_kernel`,
 softmax in fp32, ``p`` and ``ds`` rounded to bf16 where the Pallas kernels
 round them; ``o``, ``dq``, ``dk`` and ``dv`` come out in bf16, ``lse`` in
 fp32.
+
+Two kernels hand out work through counters in device memory that each
+launch leaves zero: the bf16 forward's persistent blocks claim their units
+from one, and the paged decode's last split of each (b, h) is found with
+them.  :func:`_work_counters` keeps one buffer per stream, so launches on
+one stream, which run in order, share it, and launches on two streams,
+which may run at once, never do.
 """
 
 from __future__ import annotations
@@ -81,11 +88,12 @@ FLASH_BWD_DQ_SIMT = Kernel(
     [_P] * 7 + [_I] * 6 + [_F])
 # The bf16 flash forward (csrc/flash_fwd_bf16_sm90.cu) and backward pair
 # (csrc/flash_bwd_bf16_sm90.cu), each a TMA producer warp and an mbarrier
-# ring, head dims 32 and 64, with the fp32 entries' arguments; o, dq, dk, dv
-# bf16, lse and delta fp32.
+# ring, head dims 32 and 64, with the fp32 entries' arguments (the forward
+# also takes its two work counters after lse); o, dq, dk, dv bf16, lse and
+# delta fp32.
 FLASH_FWD_BF16 = Kernel(
     "flash_fwd_bf16", "flash_fwd_bf16_sm90", "mxtpu_flash_fwd_bf16",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F])
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F])
 FLASH_BWD_DKDV_BF16 = Kernel(
     "flash_bwd_dkdv_bf16", "flash_bwd_bf16_sm90", "mxtpu_flash_bwd_dkdv_bf16",
     [_P] * 8 + [_I] * 6 + [_F])
@@ -176,19 +184,22 @@ def fused_flash_fwd(q, k, v, causal=True, sm_scale=None):
     CPU tensors: :func:`~mxnet_tpu_torch.ops.attention.flash_fwd_plain`.
     CUDA tensors: the flash kernel of their dtype and head dim
     (:func:`fwd_kernel`; contiguous, all of one dtype, D in 32/64/128).
-    The bf16 kernel at D 32 and 64 hands out its work from a counter of
-    its own on the device, so its launches on one device must not run
-    concurrently on two streams."""
+    The bf16 kernel at D 32 and 64 hands out its work from counters of
+    the current stream (:func:`_work_counters`): launches on one stream
+    run in order, launches on two streams use two buffers."""
     if device_kind((q, k, v)) == "cpu":
         return _att.flash_fwd_plain(q, k, v, causal, sm_scale)
     dtype = _check_flash("flash_prefill", q, k, v, dtypes=_FLASH_DTYPES)
     bsz, heads, t_len, dim = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    fwd_kernel(dim, dtype).launch(
+    kernel = fwd_kernel(dim, dtype)
+    units = (_work_counters(q.device, 2).data_ptr(),) \
+        if kernel is FLASH_FWD_BF16 else ()
+    kernel.launch(
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bsz, heads, t_len, k.shape[2], dim, int(bool(causal)),
-        _att._scale(q, sm_scale))
+        lse.data_ptr(), *units, bsz, heads, t_len, k.shape[2], dim,
+        int(bool(causal)), _att._scale(q, sm_scale))
     return out, lse
 
 
@@ -263,12 +274,20 @@ def decode_splits(bsz, heads, max_blocks, block_size, sms):
     return max(1, min(want, cap, max_blocks))
 
 
-def _decode_counters(device, n):
-    """``n`` or more zeroed uint32 counters on ``device``, kept for the
-    process: the kernel leaves them zero.  A larger request allocates
-    anew and keeps the old buffer alive, since a captured CUDA graph may
-    still point at it."""
-    kept = _counters.setdefault(device, [])
+def _work_counters(device, n):
+    """``n`` or more zeroed 32-bit counters on ``device`` for a launch on
+    its current stream, kept for the process: the kernels leave them zero.
+
+    The buffer is the stream's own, so two launches share one only when
+    they are on one stream and run in order.  A launch captured into a
+    CUDA graph uses the buffer of the capture stream (``chip_smoke.py``'s
+    ``cuda_ms`` captures on torch's graph stream), and so do the graph's
+    replays; where the capture allocated it, its zeroing is a node of that
+    graph, which must then replay before another graph captured on the
+    same stream does.  A larger request allocates anew and keeps the old
+    buffer alive, since a captured graph may still point at it."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    kept = _counters.setdefault(key, [])
     if not kept or kept[-1].numel() < n:
         kept.append(torch.zeros(max(n, 1024), dtype=torch.int32,
                                 device=device))
@@ -288,8 +307,9 @@ def fused_paged_decode_attention(q, k_step, v_step, k_pages, v_pages,
     loaded); ``block_tables`` and ``context_lens`` are int32 on the same
     device; the caller keeps every block id below ``num_blocks`` and every
     context length in ``[1, max_blocks * block_size]`` (the kernel clamps
-    the length, it cannot check ids).  Launches on one device share the
-    kernel's counters, so they must not run concurrently on two streams.
+    the length, it cannot check ids).  Its counters are the current
+    stream's (:func:`_work_counters`): launches on one stream run in order,
+    launches on two streams use two buffers.
     """
     tensors = (q, k_step, v_step, k_pages, v_pages, block_tables,
                context_lens)
@@ -321,7 +341,7 @@ def fused_paged_decode_attention(q, k_step, v_step, k_pages, v_pages,
     if splits > 1:
         partial = torch.empty(bsz * heads * splits * (dim + 2),
                               dtype=torch.float32, device=q.device)
-        counters = _decode_counters(q.device, bsz * heads)
+        counters = _work_counters(q.device, bsz * heads)
     PAGED_DECODE.launch(
         q.device, q.data_ptr(), k_step.data_ptr(), v_step.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),

@@ -16,6 +16,9 @@ Two kernels, chosen by shape and type alone:
   (bf16) / fmaf (fp32) GEMM core shared with the bottleneck probe, for fp32
   and for the shapes TMA cannot take.
 
+The bottleneck probe's two epilogue GEMMs route the same way
+(:func:`tma_fits`, :func:`tma_launch_shape`).
+
 Neither is a fallback of the other: a build or launch error raises.
 """
 
@@ -29,7 +32,8 @@ from ...base import MXNetError
 from .._build import Kernel, device_kind, require
 
 __all__ = ["CONV1X1_DGRAD", "CONV1X1_DGRAD_CORE", "conv1x1_dgrad",
-           "conv1x1_dgrad_plain", "dgrad_kernel_for", "tma_tile_n"]
+           "conv1x1_dgrad_plain", "dgrad_kernel_for", "tma_fits",
+           "tma_launch_shape", "tma_tile_n"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,27 +55,36 @@ def conv1x1_dgrad_plain(dy2, w, out_dtype):
     return (dy2.float() @ w.float()).to(out_dtype)
 
 
+def tma_fits(dtype, k, n, *ptrs):
+    """Whether the TMA + wgmma kernels of ``csrc/gemm_sm90.cu`` take a
+    product ``[M, k] @ [k, n]`` of ``dtype`` over tensors at addresses
+    ``ptrs``: bf16, ``k`` and ``n`` multiples of 8 (16-byte row strides),
+    every tensor 16-byte aligned."""
+    return (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+            and all(p % 16 == 0 for p in ptrs))
+
+
 def dgrad_kernel_for(dtype, o, i, *ptrs):
     """The kernel that computes a dgrad of ``dtype`` with ``O = o`` and
     ``I = i`` from tensors at addresses ``ptrs``: :data:`CONV1X1_DGRAD`
-    where TMA can take it (bf16, ``O`` and ``I`` multiples of 8, 16-byte
-    aligned), else :data:`CONV1X1_DGRAD_CORE`."""
-    if (dtype == torch.bfloat16 and o % 8 == 0 and i % 8 == 0
-            and all(p % 16 == 0 for p in ptrs)):
-        return CONV1X1_DGRAD
-    return CONV1X1_DGRAD_CORE
+    where TMA can take it (:func:`tma_fits`), else
+    :data:`CONV1X1_DGRAD_CORE`."""
+    return CONV1X1_DGRAD if tma_fits(dtype, o, i, *ptrs) \
+        else CONV1X1_DGRAD_CORE
 
 
 def tma_tile_n(m, k, n, sms):
-    """N of the TMA kernel's output tile (64, 128 or 256) for ``dy [m, k]
-    @ w [k, n]`` on ``sms`` SMs.
+    """N of the TMA kernel's output tile (64, 128 or 256) for ``a [m, k]
+    @ b [k, n]`` on ``sms`` SMs.
 
-    Every tile streams its [128, k] rows of dy and the [k, N] columns of w
+    Every tile streams its [128, k] rows of a and the [k, N] columns of b
     from L2 and writes [128, N]; the busiest SM runs ``ceil(tiles / sms)``
-    of them.  The tile that moves the fewest bytes through the busiest SM
-    wins, the wider on a tie (it reads each row block of dy fewer times).
-    Up to N = 256 the whole of ``n`` in one tile reads dy once; at K >= 512
-    the per-tile traffic of w and the last partial wave decide."""
+    of them.  The tile that moves the fewest bytes
+    through the busiest SM wins, the wider on a tie (it reads each row
+    block of a fewer times).  Up to N = 256 the whole of ``n`` in one tile
+    reads a once; at K >= 512 the per-tile traffic of b and the last
+    partial wave decide.  (The probe's residual, another [128, N] a tile,
+    changes the choice at none of its shapes, so it is not counted.)"""
     best, best_cost = None, None
     for tile in (256, 128, 64):
         if tile > 64 and tile // 2 >= n:
@@ -81,6 +94,15 @@ def tma_tile_n(m, k, n, sms):
         if best_cost is None or cost < best_cost:
             best, best_cost = tile, cost
     return best
+
+
+def tma_launch_shape(device, m, k, n):
+    """``(tile_n, grid)`` of a launch of a ``csrc/gemm_sm90.cu`` kernel on
+    ``device``: :func:`tma_tile_n` and one persistent block an SM, or one
+    a tile where there are fewer tiles."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tile_n = tma_tile_n(m, k, n, sms)
+    return tile_n, min(-(-m // _TMA_BM) * -(-n // tile_n), sms)
 
 
 def conv1x1_dgrad(dy2, w, out_dtype):
@@ -107,8 +129,6 @@ def conv1x1_dgrad(dy2, w, out_dtype):
         kernel.launch(dy2.device, *ptrs, m, o, i,
                       int(out_dtype == torch.bfloat16))
         return dx
-    sms = torch.cuda.get_device_properties(dy2.device).multi_processor_count
-    tile_n = tma_tile_n(m, o, i, sms)
-    tiles = -(-m // _TMA_BM) * -(-i // tile_n)
-    kernel.launch(dy2.device, *ptrs, m, o, i, tile_n, min(tiles, sms))
+    kernel.launch(dy2.device, *ptrs, m, o, i,
+                  *tma_launch_shape(dy2.device, m, o, i))
     return dx

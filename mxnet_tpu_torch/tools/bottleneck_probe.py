@@ -16,11 +16,15 @@ Three head-to-heads per shape, forward only:
 Shapes: the 1x1 convs of ResNet-50's stages at the bench configuration
 (batch 128, NHWC, bf16): ``M = B*H*W`` rows, ``K -> N`` channels.
 
-The kernels are ``mm_epilogue_kernel`` and ``mm_stats_kernel`` of
-``csrc/gemm_kernels.cu`` (the JAX tool's two Pallas kernels).  Each has a
-plain version here; the wrappers run it for CPU tensors.  Times are device
-times from CUDA events around ``PROBE_STEPS`` (default 100) back-to-back
-calls after a warm-up.
+The JAX tool's two Pallas kernels are two epilogues of the TMA + wgmma
+GEMM of ``csrc/gemm_sm90.cu`` (``mm_epilogue``, ``mm_with_stats``): bf16
+with K and N multiples of 8 and 16-byte aligned tensors, every call of
+the probe.  fp32 and every other shape take the cp.async + wmma core of
+``csrc/gemm_kernels.cu`` (``mm_epilogue_core``, ``mm_with_stats_core``),
+chosen by shape and type alone (:func:`gemm_kernel_for`); neither is a
+fallback of the other.  Each function has a plain version here; the
+wrappers run it for CPU tensors.  Times are device times from CUDA events
+around ``PROBE_STEPS`` (default 100) back-to-back calls after a warm-up.
 
 Run on the card:  python -m mxnet_tpu_torch.tools.bottleneck_probe
 """
@@ -34,22 +38,34 @@ import torch
 
 from ..base import MXNetError
 from ..ops._build import Kernel, device_kind, require
+from ..ops.fused.conv_kernels import tma_fits, tma_launch_shape
 
-__all__ = ["MM_EPILOGUE", "MM_WITH_STATS", "SHAPES", "main", "mm_epilogue",
-           "mm_epilogue_plain", "mm_with_stats", "mm_with_stats_plain",
-           "probe_shape"]
+__all__ = ["MM_EPILOGUE", "MM_EPILOGUE_CORE", "MM_WITH_STATS",
+           "MM_WITH_STATS_CORE", "SHAPES", "gemm_kernel_for", "main",
+           "mm_epilogue", "mm_epilogue_plain", "mm_with_stats",
+           "mm_with_stats_plain", "probe_shape"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+# x, w, scale, bias, res, y, M, K, N, relu; then tile N and grid (TMA) or
+# the bf16 flag (core)
 MM_EPILOGUE = Kernel(
-    "mm_epilogue", "gemm_kernels", "mxtpu_mm_epilogue",
-    [_P] * 6 + [ctypes.c_longlong, _I, _I, _I, _I])
+    "mm_epilogue", "gemm_sm90", "mxtpu_mm_epilogue_sm90",
+    [_P] * 6 + [_LL, _I, _I, _I, _I, _I])
+MM_EPILOGUE_CORE = Kernel(
+    "mm_epilogue_core", "gemm_kernels", "mxtpu_mm_epilogue",
+    [_P] * 6 + [_LL, _I, _I, _I, _I])
+# x, w, y, part1, part2, M, K, N; then as above
 MM_WITH_STATS = Kernel(
-    "mm_with_stats", "gemm_kernels", "mxtpu_mm_stats",
-    [_P] * 5 + [ctypes.c_longlong, _I, _I, _I])
+    "mm_with_stats", "gemm_sm90", "mxtpu_mm_stats_sm90",
+    [_P] * 5 + [_LL, _I, _I, _I, _I])
+MM_WITH_STATS_CORE = Kernel(
+    "mm_with_stats_core", "gemm_kernels", "mxtpu_mm_stats",
+    [_P] * 5 + [_LL, _I, _I, _I])
 
-# Rows of one output tile of csrc/gemm_kernels.cu (kBM): mm_with_stats
-# writes one row of column partials per block of this many rows.
+# Rows of one output tile of both kernels (kBM): mm_with_stats writes one
+# row of column partials per block of this many rows.
 _TILE_ROWS = 128
 
 # (name, M, K, N): the 1x1 convs of each ResNet-50 stage at batch 128
@@ -77,6 +93,26 @@ def _check(name, x, w, dtypes=(torch.bfloat16, torch.float32)):
     if x.dtype not in dtypes or w.dtype != x.dtype:
         raise MXNetError("%s takes bf16 or fp32 x and w of one type, got "
                          "%s, %s" % (name, x.dtype, w.dtype))
+
+
+def gemm_kernel_for(stats, dtype, k, n, *ptrs):
+    """The kernel of ``mm_with_stats`` (``stats``) or ``mm_epilogue`` for
+    ``x [M, k] @ w [k, n]`` of ``dtype`` over tensors at addresses
+    ``ptrs``: the TMA + wgmma kernel where it takes the shape
+    (:func:`~mxnet_tpu_torch.ops.fused.conv_kernels.tma_fits`), else the
+    core."""
+    if tma_fits(dtype, k, n, *ptrs):
+        return MM_WITH_STATS if stats else MM_EPILOGUE
+    return MM_WITH_STATS_CORE if stats else MM_EPILOGUE_CORE
+
+
+def _launch(kernel, device, args, m, k, n, dtype):
+    """``kernel`` with ``args``, then the TMA kernels' tile N and grid or
+    the core's bf16 flag."""
+    if kernel in (MM_EPILOGUE, MM_WITH_STATS):
+        kernel.launch(device, *args, *tma_launch_shape(device, m, k, n))
+    else:
+        kernel.launch(device, *args, int(dtype == torch.bfloat16))
 
 
 def mm_epilogue_plain(x, w, scale, bias, res=None, relu=True):
@@ -107,11 +143,12 @@ def mm_epilogue(x, w, scale, bias, res=None, relu=True):
     if res is not None:
         require("mm_epilogue", res, x.dtype, (m, n))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    MM_EPILOGUE.launch(x.device, x.data_ptr(), w.data_ptr(),
-                       scale.data_ptr(), bias.data_ptr(),
-                       None if res is None else res.data_ptr(), y.data_ptr(),
-                       m, k, n, int(bool(relu)),
-                       int(x.dtype == torch.bfloat16))
+    ptrs = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            None if res is None else res.data_ptr(), y.data_ptr())
+    kernel = gemm_kernel_for(False, x.dtype, k, n,
+                             *(p for p in ptrs if p is not None))
+    _launch(kernel, x.device, ptrs + (m, k, n, int(bool(relu))), m, k, n,
+            x.dtype)
     return y
 
 
@@ -134,13 +171,15 @@ def mm_with_stats(x, w):
     require("mm_with_stats", x, x.dtype)
     require("mm_with_stats", w, x.dtype)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    blocks = -(-m // _TILE_ROWS)
-    part1 = torch.empty((blocks, n), dtype=torch.float32, device=x.device)
-    part2 = torch.empty_like(part1)
-    MM_WITH_STATS.launch(x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                         part1.data_ptr(), part2.data_ptr(), m, k, n,
-                         int(x.dtype == torch.bfloat16))
-    return y, part1.sum(0), part2.sum(0)
+    # the partials of both sums in one buffer, added by one reduction
+    parts = torch.empty((2, -(-m // _TILE_ROWS), n), dtype=torch.float32,
+                        device=x.device)
+    ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr(), parts[0].data_ptr(),
+            parts[1].data_ptr())
+    _launch(gemm_kernel_for(True, x.dtype, k, n, *ptrs[:3]), x.device,
+            ptrs + (m, k, n), m, k, n, x.dtype)
+    s1, s2 = parts.sum(1)
+    return y, s1, s2
 
 
 def _time(fn, steps):

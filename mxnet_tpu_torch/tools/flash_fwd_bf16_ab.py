@@ -79,33 +79,38 @@ def builds(other=None):
     return out
 
 
-def in_turns(libs, shape=(8, 16, 2048, 64)):
+def in_turns(libs, shape=(8, 16, 2048, 64), no_units=()):
     """Each library's ``mxtpu_flash_fwd_bf16`` on one seeded causal input
     of ``shape`` (B, H, T, D): prints whether its o and lse equal the
     ``_v1`` kernel's bits and its device ms in turns with ``_v1``; returns
-    ``{label: (ms, v1 ms)}``."""
+    ``{label: (ms, v1 ms)}``.  The libraries of ``no_units`` are builds of
+    sources whose entry takes no work-counter buffer (a device-wide
+    counter instead)."""
     dev = torch.device("cuda", 0)
     b, h, t, d = shape
     rng = np.random.RandomState(0)
     q, k, v = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(
         dev).to(torch.bfloat16) for _ in range(3))
     o, lse = torch.empty_like(q), torch.empty(b, h, t, device=dev)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, h, t, t, d, 1, 1.0 / d ** 0.5)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
+    dims = (b, h, t, t, d, 1, 1.0 / d ** 0.5)
+    units = torch.zeros(2, dtype=torch.int32, device=dev)
 
     def v1(_i=0):
-        ak.FLASH_FWD_BF16_V1.launch(dev, *args)
+        ak.FLASH_FWD_BF16_V1.launch(dev, *ptrs, *dims)
 
     v1()
     want = (o.clone(), lse.clone())
     out = {}
     for label, lib in libs.items():
         fn = lib.mxtpu_flash_fwd_bf16
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                                    ctypes.c_void_p]
+        extra = () if label in no_units else (units.data_ptr(),)
+        fn.argtypes = [ctypes.c_void_p] * (5 + len(extra)) + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        args = ptrs + extra + dims
 
-        def run(_i=0, fn=fn):
+        def run(_i=0, fn=fn, args=args):
             rc = fn(*args, torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError("launch failed: %d" % rc)
@@ -128,8 +133,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("flash_fwd_bf16_ab: no CUDA device")
     print("device %s" % torch.cuda.get_device_name(0))
-    libs = _compile(builds(args.other), "flash_fwd_bf16_ab", r"flash_fwd_bf16_kernel")
-    ms = in_turns(libs)
+    srcs = builds(args.other)
+    libs = _compile(srcs, "flash_fwd_bf16_ab", r"flash_fwd_bf16_kernel")
+    ms = in_turns(libs, no_units={label for label, src in srcs.items()
+                                  if "__device__ int g_units" in src})
     if "products only" in ms and "elementwise only" in ms:
         print("  whole %.4f ms against products alone + elementwise alone %.4f + %.4f = "
               "%.4f ms" % (ms["as is"][0], ms["products only"][0], ms["elementwise only"][0],

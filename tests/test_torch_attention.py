@@ -91,10 +91,13 @@ def test_paged_decode_matches_jax_kernel(case):
     np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
 
 
-def test_decode_splits_cover_the_card():
+def test_decode_splits_cover_the_card(monkeypatch):
     """The paged decode kernel's split count: about 4 blocks per SM over
     B * H * splits, no split of a full table under 64 keys, at most one
-    split per page, at least one."""
+    split per page, at least one.  The work counters of the paged decode
+    and the bf16 forward: one buffer per (device, stream), allocated anew
+    and the old one kept when a launch needs more (on the CPU, with a
+    stand-in for the current stream)."""
     sms = 132
     # the lane's step: 8 sequences, 16 heads, 128 pages of 16
     assert pak.decode_splits(8, 16, 128, 16, sms) == 5
@@ -105,6 +108,28 @@ def test_decode_splits_cover_the_card():
     for bsz in (1, 2, 8, 32):
         s = pak.decode_splits(bsz, 16, 128, 16, sms)
         assert 1 <= s <= 32 and (bsz * 16 * s >= 4 * sms or s == 32)
+
+    stream = [11]
+
+    class _Stream(object):
+        @property
+        def cuda_stream(self):
+            return stream[0]
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream())
+    monkeypatch.setattr(pak, "_counters", {})
+    cpu = torch.device("cpu")
+    first = pak._work_counters(cpu, 128)
+    assert first.numel() == 1024 and not first.any()
+    assert pak._work_counters(cpu, 2) is first
+    stream[0] = 12
+    second = pak._work_counters(cpu, 128)
+    assert second is not first
+    assert pak._work_counters(cpu, 1024) is second
+    grown = pak._work_counters(cpu, 2048)
+    assert grown.numel() == 2048 and grown is not second
+    assert pak._counters == {(cpu, 11): [first], (cpu, 12): [second, grown]}
 
 
 def test_paged_decode_ignores_pad_pages_and_tails():

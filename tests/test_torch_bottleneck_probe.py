@@ -80,8 +80,12 @@ def _f32(a):
 def test_kernels_plain_versions_match_jax(jax_probe, interpret):
     """``mm_epilogue`` with and without ``res``, ReLU on and off, and
     ``mm_with_stats``, whose sums are of the fp32 accumulator, not of the
-    rounded ``y``; bf16 and fp32.  The cases are a loop, not parameters
-    (see the note at the end of test_torch_conv1x1.py)."""
+    rounded ``y``; bf16 and fp32; CPU tensors launch none of the four
+    kernels.  The cases are a loop, not parameters (see the note at the
+    end of test_torch_conv1x1.py)."""
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
     for dtype in ("float32", "bfloat16"):
         (jx, jw, js, jb, jres), (px, pw, ps, pb, pres) = _inputs(dtype)
         for with_res in (False, True):
@@ -107,6 +111,10 @@ def test_kernels_plain_versions_match_jax(jax_probe, interpret):
                 np.testing.assert_allclose(_f32(g), _f32(w),
                                            err_msg="%s %s" % (dtype, name),
                                            **TOL[dtype])
+    counts = launch_counts()
+    assert not any(counts[k.name] for k in (
+        probe.MM_EPILOGUE, probe.MM_WITH_STATS, probe.MM_EPILOGUE_CORE,
+        probe.MM_WITH_STATS_CORE))
 
 
 def test_refusals_match_jax(jax_probe, interpret):
@@ -128,10 +136,39 @@ def test_refusals_match_jax(jax_probe, interpret):
 def test_probe_shapes_and_package_walk():
     """The five ResNet-50 batch-128 shapes are the JAX tool's; the import
     guard of ``test_torch_generation.py``, which walks the package with
-    ``pkgutil``, reaches ``mxnet_tpu_torch.tools`` and slice 3's modules."""
+    ``pkgutil``, reaches ``mxnet_tpu_torch.tools`` and slice 3's modules.
+    The wrappers' choice of kernel, by shape and type alone: every probe
+    shape, in both forms of ``mm_epilogue`` (``x @ w`` and ``dy @ w^T``)
+    and in ``mm_with_stats``, takes the TMA + wgmma kernels of
+    ``gemm_sm90``; fp32, K or N no multiple of 8 and a tensor not 16-byte
+    aligned take the wmma cores of ``gemm_kernels``."""
     src = open(os.path.join(REPO, "tools", "bottleneck_probe.py")).read()
     for name, m, k, n in probe.SHAPES:
         assert '("%s", %d, %d, %d)' % (name, m, k, n) in src, name
+    bf, f32 = torch.bfloat16, torch.float32
+    tma = (probe.MM_EPILOGUE, probe.MM_WITH_STATS)
+    core = (probe.MM_EPILOGUE_CORE, probe.MM_WITH_STATS_CORE)
+    assert [(k_.name, k_.lib) for k_ in tma + core] == [
+        ("mm_epilogue", "gemm_sm90"), ("mm_with_stats", "gemm_sm90"),
+        ("mm_epilogue_core", "gemm_kernels"),
+        ("mm_with_stats_core", "gemm_kernels")]
+    aligned = (0, 256, 4096, 8192, 65536, 1 << 20)
+    for name, m, k, n in probe.SHAPES:
+        for kk, nn in ((k, n), (n, k)):     # forms A and C; form B
+            for stats in (False, True):
+                assert probe.gemm_kernel_for(stats, bf, kk, nn, *aligned) \
+                    is tma[stats], (name, kk, nn, stats)
+                assert probe.gemm_kernel_for(stats, f32, kk, nn, *aligned) \
+                    is core[stats], (name, kk, nn, stats)
+    for dtype, k, n, ptrs, which in (
+            (bf, 200, 72, aligned, 0),      # K, N ragged but 8-aligned
+            (bf, 60, 64, aligned, 1),       # K % 8
+            (bf, 64, 36, aligned, 1),       # N % 8
+            (bf, 64, 64, (0, 8, 0), 1),     # an 8-byte aligned tensor
+            (f32, 64, 256, aligned, 1)):
+        for stats in (False, True):
+            assert probe.gemm_kernel_for(stats, dtype, k, n, *ptrs) \
+                is (tma, core)[which][stats], (dtype, k, n, ptrs)
     mods = {m.name for m in pkgutil.walk_packages(
         mxnet_tpu_torch.__path__, "mxnet_tpu_torch.")}
     assert {"mxnet_tpu_torch.tools",
