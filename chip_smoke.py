@@ -28,10 +28,17 @@ Phases, each fatal on failure:
    beside the plain version's and SDPA's, at T 2048 and 4096; the bf16
    dgrad and the probe's two epilogue GEMMs (TMA + wgmma) in turns with
    the earlier wmma core, shape by shape, beside the probe's torch form,
-   and each shape is checked to reach the kernel its shape and type take.  The LayerNorm op (one warp a row, registers) in fp32, bf16 and
-   fp16 at the training shape and at a ragged C, in turns with its first
-   design (v1); the paged decode (split over the context, partials merged
-   in order) in fp32 and with bf16 pools at the lane's 8 sequences, at
+   and each shape is checked to reach the kernel its shape and type take.
+   The LM layer norm (four warps a row, registers) at the lane's largest
+   prefill [1, 512, 1024] and largest decode step [8, 1, 1024], in turns
+   with its first design (v1), beside ``F.layer_norm``, its bound and the
+   launch floor (``zero_()`` of a one-element tensor), and at an odd C and
+   at an x 4 bytes past 16-byte alignment, where it must give the first
+   design's bits; the GELU epilogue also at [8, 1, 4096].  The LayerNorm
+   op (one warp a row, registers) in fp32, bf16 and fp16 at the training
+   shape and at a ragged C, in turns with its first design (v1); the
+   paged decode (split over the context, partials merged in order) in
+   fp32 and with bf16 pools at the lane's 8 sequences, at
    B 1 and at a context of 1, two calls giving equal bits, in turns with
    its first design (v1), and 50 rounds of two launches with different
    inputs on two streams at once, each bitwise equal to its one-stream
@@ -55,9 +62,11 @@ Phases, each fatal on failure:
    concurrent requests (prompts of 64-512 tokens, 32-64 new tokens each)
    submitted and streamed.  Every request must finish by length with no
    dispatch error, every lane kernel must have launched in that run
-   (counts are zeroed just before it and read just after), and for two
-   requests each step's logits are held against the full-sequence forward
-   at the same position.
+   (counts are zeroed just before it and read just after; the LM layer
+   norm's and the GELU epilogue's calls are also tallied by row count,
+   decode steps against prefills, and must sum to their launches), and for
+   two requests each step's logits are held against the full-sequence
+   forward at the same position.
 5. One ``ShardedTrainer`` step of the LM at full width cut to 2 layers,
    batch 1, T 512, on the card and on the CPU (plain versions) from the
    same ``init(seed=0)`` and batch, in fp32 and in bf16: outputs, weights
@@ -157,9 +166,9 @@ LANE_KERNELS = ("flash_prefill", "paged_decode", "lm_layer_norm",
 # phase 3 (the CUDA-core backward pair and the first bf16 backward pair also
 # serve head dim 128, which no main path runs; phase 6 checks they stay off
 # the LM path).
-EARLIER_KERNELS = ("flash_fwd_simt", "layer_norm_op_v1", "paged_decode_v1",
-                   "flash_fwd_bf16_v1", "flash_bwd_dkdv_bf16_v1",
-                   "flash_bwd_dq_bf16_v1")
+EARLIER_KERNELS = ("flash_fwd_simt", "layer_norm_op_v1", "lm_layer_norm_v1",
+                   "paged_decode_v1", "flash_fwd_bf16_v1",
+                   "flash_bwd_dkdv_bf16_v1", "flash_bwd_dq_bf16_v1")
 
 
 class SmokeError(Exception):
@@ -241,6 +250,21 @@ def simt_flash(q, k, v, causal, with_lse):
     return out
 
 
+def lm_ln_v1(x, gamma, beta, y=None):
+    """One launch of the LM layer norm's first design (kept in the library
+    for the in-turn timings only) on x [..., C], into ``y`` or a new
+    tensor."""
+    import torch
+
+    from mxnet_tpu_torch.ops.fused import norm_kernels as nk
+
+    y = torch.empty_like(x) if y is None else y
+    nk.LM_LAYER_NORM_V1.launch(x.device, x.data_ptr(), gamma.data_ptr(),
+                               beta.data_ptr(), y.data_ptr(),
+                               x.numel() // x.shape[-1], x.shape[-1], 1e-5)
+    return y
+
+
 def max_err(got, want, tol, name):
     """Hold ``got`` within ``tol`` abs + rel of ``want``; prints the largest
     error and the largest share of the gate any element uses,
@@ -314,21 +338,11 @@ def check_kernels(dev, cfg):
     t = PREFILL_BUCKETS[-1]
     rows = []
 
-    # LM layer norm, on the largest prefill's [1, T, C] rows
-    x, g, b = randn(1, t, c), randn(c), randn(c)
-    err = max_err(nk.lm_layer_norm(x, g, b), nk.lm_layer_norm_plain(x, g, b),
-                  TOL, "lm_layer_norm")
-    nb, by = bound((2 * x.numel() + 2 * c) * 4, 8 * x.numel())
-    rows.append({
-        "name": "lm_layer_norm", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/norm_kernels.cu",
-        "replaces": "mxnet_tpu/ops/fused/norm_kernels.py:85",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda i: nk.lm_layer_norm(x, g, b), 200),
-        "plain_ms": cuda_ms(lambda i: nk.lm_layer_norm_plain(x, g, b), 50),
-        "bound_ms": nb, "bound_by": by,
-        "library_ms": cuda_ms(
-            lambda i: F.layer_norm(x, (c,), g, b, eps=1e-5), 200)})
+    # the least time of any launch in this harness: one element zeroed
+    one = torch.zeros(1, device=dev)
+    floor = cuda_ms(lambda i: one.zero_(), 200)
+    print("  [launch floor] zero_() of a one-element tensor %.4f ms" % floor)
+    rows.append(check_lm_layer_norm(dev, cfg, randn, floor))
 
     # GELU+bias epilogue on the FFN hidden [1, T, 4C]
     h, bias = randn(1, t, 4 * c), randn(4 * c)
@@ -344,6 +358,16 @@ def check_kernels(dev, cfg):
         "plain_ms": cuda_ms(lambda i: nk.lm_gelu_bias_plain(h, bias), 50),
         "bound_ms": nb, "bound_by": by,
         "library_ms": None})   # no one torch call adds the bias and gelus
+    # timed at the largest decode step's [8, 1, 4C] too, where the lane
+    # launches it most
+    hd = randn(DECODE_BUCKETS[-1], 1, 4 * c)
+    max_err(nk.lm_gelu_bias(hd, bias), nk.lm_gelu_bias_plain(hd, bias), TOL,
+            "gelu [8,1,4C]")
+    nb, _ = bound((2 * hd.numel() + 4 * c) * 4, 10 * hd.numel())
+    k_ms = cuda_ms(lambda i: nk.lm_gelu_bias(hd, bias), 200)
+    print("  [lm_gelu_bias, h %s] kernel %.4f ms; bound %.4f ms (%.0f%% of "
+          "it); launch floor %.4f ms" % (list(hd.shape), k_ms, nb,
+                                          100 * nb / k_ms, floor))
 
     # flash prefill at the largest bucket, and a ragged length
     q, k, v = (randn(1, heads, t, d) for _ in range(3))
@@ -378,6 +402,67 @@ def check_kernels(dev, cfg):
 
     rows.append(check_paged_decode(dev, cfg, randn))
     return rows
+
+
+def check_lm_layer_norm(dev, cfg, randn, floor):
+    """Row 6 against its plain version at the lane's largest prefill
+    ``[1, T, C]`` and largest decode step ``[8, 1, C]``, and at two shapes
+    that must take the first design (an odd C, and x 4 bytes past 16-byte
+    alignment), where its output must equal the first design's alone bit
+    for bit; the kernel and the first design (v1) timed in turns at the two
+    lane shapes beside ``F.layer_norm``, the bound and the launch floor.
+    Returns the kernel's JSON row (the prefill shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.fused import norm_kernels as nk
+
+    c = cfg["num_embed"]
+    g, b = randn(c), randn(c)
+    err, row = 0.0, None
+    for shape in ((1, PREFILL_BUCKETS[-1], c), (DECODE_BUCKETS[-1], 1, c)):
+        x = randn(*shape)
+        want = nk.lm_layer_norm_plain(x, g, b)
+        err = max(err, max_err(nk.lm_layer_norm(x, g, b), want, TOL,
+                               "lm_layer_norm %s" % list(shape)))
+        y1 = torch.empty_like(x)
+        max_err(lm_ln_v1(x, g, b, y1), want, TOL,
+                "lm ln v1 %s" % list(shape))
+        old_ms, new_ms = in_turns(lambda i: lm_ln_v1(x, g, b, y1),
+                                  lambda i: nk.lm_layer_norm(x, g, b), 200)
+        lib_ms = cuda_ms(lambda i: F.layer_norm(x, (c,), g, b, eps=1e-5),
+                         200)
+        nb, by = bound((2 * x.numel() + 2 * c) * 4, 8 * x.numel())
+        print("  [lm_layer_norm, x %s] kernel %.4f ms, v1 %.4f ms (in "
+              "turns, %.2fx), F.layer_norm %.4f ms; bound %.4f ms (%.0f%% "
+              "of it); launch floor %.4f ms, the kernel %.4f ms above it"
+              % (list(shape), new_ms, old_ms, old_ms / new_ms, lib_ms, nb,
+                 100 * nb / new_ms, floor, new_ms - floor))
+        if row is None:
+            row = {
+                "name": "lm_layer_norm", "route": "cuda",
+                "source": "mxnet_tpu_torch/csrc/norm_kernels.cu",
+                "replaces": "mxnet_tpu/ops/fused/norm_kernels.py:85",
+                "ms": new_ms,
+                "plain_ms": cuda_ms(
+                    lambda i: nk.lm_layer_norm_plain(x, g, b), 50),
+                "bound_ms": nb, "bound_by": by, "library_ms": lib_ms}
+    for shape, offset in (((3, 7, 1001), 0), ((DECODE_BUCKETS[-1], 1, c), 1)):
+        n = int(np.prod(shape))
+        x = torch.empty(n + offset, device=dev)[offset:].view(shape)
+        x.copy_(randn(*shape))
+        gr, br = randn(shape[-1]), randn(shape[-1])
+        got = nk.lm_layer_norm(x, gr, br)
+        err = max(err, max_err(got, nk.lm_layer_norm_plain(x, gr, br), TOL,
+                               "lm ln %s+%d" % (list(shape), 4 * offset)))
+        if not torch.equal(got, lm_ln_v1(x, gr, br)):
+            raise SmokeError("lm_layer_norm at %s, x %d bytes past 16-byte "
+                             "alignment: not the first design's output"
+                             % (list(shape), 4 * offset))
+    print("  lm_layer_norm at the odd C and the unaligned x: the first "
+          "design's output, bit for bit")
+    row["max_abs_err"] = err
+    return row
 
 
 def _paged_tables(ctx, max_blocks):
@@ -1646,6 +1731,20 @@ def run_slice(dev, cfg, prompts, new_tokens, num_blocks, prefill_buckets,
     prompt_ids = [rng.randint(0, cfg["num_classes"], size=n).astype(np.int32)
                   for n in prompts]
 
+    # rows a call of row 6 and row 7 had on the main path: each call of the
+    # transformer's wrappers is tallied by its row count
+    by_rows = {"lm_layer_norm": {}, "lm_gelu_bias": {}}
+    wrapped = {name: getattr(tfm, name) for name in by_rows}
+
+    def tallied(name):
+        def run(x, *args):
+            rows = x.numel() // x.shape[-1]
+            by_rows[name][rows] = by_rows[name].get(rows, 0) + 1
+            return wrapped[name](x, *args)
+        return run
+
+    for name in by_rows:
+        setattr(tfm, name, tallied(name))
     reset_launch_counts()
     # -- the main path: entry points a user calls ------------------------
     backend = LMBackend(params, cfg, block_size=BLOCK_SIZE,
@@ -1679,6 +1778,8 @@ def run_slice(dev, cfg, prompts, new_tokens, num_blocks, prefill_buckets,
         torch.cuda.synchronize()
     counts = launch_counts()
     # -- end of the main path -------------------------------------------
+    for name, fn in wrapped.items():
+        setattr(tfm, name, fn)
     stats = sched.stats("lm")
     sched.close()
     for i, r in enumerate(reqs):
@@ -1695,6 +1796,15 @@ def run_slice(dev, cfg, prompts, new_tokens, num_blocks, prefill_buckets,
                                    stats["tokens"], stats["occupancy"],
                                    stats["dispatch_errors"]))
     print("  launches in the run: %s" % json.dumps(counts))
+    for name, tally in by_rows.items():
+        decode = sum(n for r, n in tally.items() if r <= decode_buckets[-1])
+        print("  %s launches by rows: %s; decode steps (rows <= %d) %d, "
+              "prefill %d" % (name, json.dumps(dict(sorted(tally.items()))),
+                              decode_buckets[-1], decode,
+                              sum(tally.values()) - decode))
+        if dev.type == "cuda" and sum(tally.values()) != counts[name]:
+            raise SmokeError("%s: %d calls tallied by rows, %d launches"
+                             % (name, sum(tally.values()), counts[name]))
     missing = [n for n in LANE_KERNELS if counts[n] == 0]
     if dev.type == "cuda" and missing:
         raise SmokeError("kernels never launched on the main path: %s"
@@ -1756,8 +1866,9 @@ def run_slice(dev, cfg, prompts, new_tokens, num_blocks, prefill_buckets,
 def decode_breakdown(backend, reqs, card):
     """Where one full decode step (8 rows) goes: its host wall time
     against the card's time for the same step, taken by replaying the
-    step's kernels as one CUDA graph (so no host gap is counted), and the
-    step's kernels by device time from torch.profiler."""
+    step's kernels as one CUDA graph (so no host gap is counted), that
+    time in turns with the LM layer norm's first design (v1) in its place,
+    and the step's kernels by device time from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1792,7 +1903,16 @@ def decode_breakdown(backend, reqs, card):
         tfm.lm_decode_step(backend.params, tok, pos, backend.cache.k_pages,
                            backend.cache.v_pages, bt, cl, cfg)
 
+    def step_v1(i):
+        kept, tfm.lm_layer_norm = tfm.lm_layer_norm, lm_ln_v1
+        try:
+            step(i)
+        finally:
+            tfm.lm_layer_norm = kept
+
     device_ms = cuda_ms(step, 5)
+    # the step with row 6's first design in its place, in turns
+    v1_ms, new_ms = in_turns(step_v1, step, 5)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(3):
             step(i)
@@ -1803,6 +1923,9 @@ def decode_breakdown(backend, reqs, card):
           "on the card (CUDA graph replay): the card idles %.1f%% of the "
           "step" % (card, bsz, cfg["num_layers"], wall, device_ms,
                     100.0 * max(0.0, 1 - device_ms / wall)))
+    print("  [%s] decode step on the card, in turns: %.4f ms, %.4f ms with "
+          "the LM layer norm's first design (v1) in its %d launches"
+          % (card, new_ms, v1_ms, 2 * cfg["num_layers"] + 1))
     # kernel rows only: an op's row also carries its kernels' time
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
@@ -1983,7 +2106,7 @@ _OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel",
                 "flash_bwd_dkdv_bf16_v1_kernel", "flash_bwd_dq_bf16_v1_kernel",
                 "flash_bwd_dkdv_simt_kernel",
-                "flash_bwd_dq_simt_kernel", "layer_norm_op_kernel",
+                "flash_bwd_dq_simt_kernel", "ln_rows_kernel",
                 "sgd_mom_multi_kernel", "gemm_sm90_kernel",
                 "conv1x1_dgrad_kernel", "mm_epilogue_kernel",
                 "mm_stats_kernel")
@@ -2452,7 +2575,7 @@ def kernel_entry(mangled):
         if name is None:
             continue
         args = re.match(r"I((?:Li\d+E)+)E|I(13__nv_bfloat16|f)Lb(\d)E|"
-                        r"I(f|13__nv_bfloat16|6__half)((?:Li\d+E)*)E|E",
+                        r"I(f|13__nv_bfloat16|6__half)((?:L[ib]\d+E)*)E|E",
                         mangled[run.end() + len(name):])
         if not args:
             continue
@@ -2462,7 +2585,9 @@ def kernel_entry(mangled):
         else:
             targs = ", ".join(
                 ([_TYPES[args.group(4)]] if args.group(4) else [])
-                + re.findall(r"\d+", args.group(1) or args.group(5) or ""))
+                + [v if k == "i" else ("true" if v == "1" else "false")
+                   for k, v in re.findall(r"L([ib])(\d+)E", args.group(1)
+                                          or args.group(5) or "")])
         return name + ("<%s>" % targs if targs else "")
     return None
 

@@ -1,6 +1,6 @@
 // 16-byte vectors of fp32, bf16 or fp16 elements, converted to and from fp32
 // registers: the unit of the row-resident kernels' loads and stores
-// (norm_kernels.cu layer_norm_op_kernel, attention_kernels.cu
+// (norm_kernels.cu ln_rows_kernel, attention_kernels.cu
 // paged_decode_kernel).  Math stays fp32; a low-precision store rounds to
 // nearest even, as PyTorch's and JAX's casts do.
 #pragma once

@@ -8,6 +8,20 @@ the data's dtype).  :func:`lm_layer_norm`, :func:`lm_gelu_bias` and
 :func:`fused_layer_norm_op` run the kernel for a CUDA tensor and the plain
 version for a CPU tensor.
 
+Both layer norms run one row-resident kernel body: each row held in
+registers by its threads, its statistics by warp shuffles.  The LM layer
+norm gives a row four warps, which combine their partial statistics in one
+shared-memory exchange, one row a block, gamma and beta loaded beside the
+row: one launch shape at every row count the generation lane gives it
+(1-8 decode rows, 64-512 prefill rows; ``python -m
+mxnet_tpu_torch.tools.lm_layer_norm_ab`` times every shape on the card).
+The ``LayerNorm`` op gives a row one warp, eight rows a block.  Rows whose
+C is not a multiple of the 16-byte vector or above 256 vectors, or whose
+tensors are not 16-byte aligned, take each kernel's first design (one
+block a row, two block reductions), which :data:`LM_LAYER_NORM_V1` and
+:data:`LAYER_NORM_OP_V1` also run alone so that a run on the card can time
+the two designs in turns; no path of the package launches those two.
+
 :func:`layer_norm_op` is the ``LayerNorm`` registry op's differentiable
 form: a ``torch.autograd.Function`` whose forward is the kernel (it also
 writes each row's mean and 1/std) and whose backward is the plain PyTorch
@@ -27,15 +41,21 @@ from ...base import MXNetError
 from .._build import Kernel, device_kind, require
 
 __all__ = ["LAYER_NORM_OP", "LAYER_NORM_OP_V1", "LM_GELU_BIAS", "LM_LAYER_NORM",
-           "fused_layer_norm_op", "layer_norm_op", "layer_norm_op_backward",
-           "layer_norm_op_plain", "lm_gelu_bias", "lm_gelu_bias_plain",
-           "lm_layer_norm", "lm_layer_norm_plain"]
+           "LM_LAYER_NORM_V1", "fused_layer_norm_op", "layer_norm_op",
+           "layer_norm_op_backward", "layer_norm_op_plain", "lm_gelu_bias",
+           "lm_gelu_bias_plain", "lm_layer_norm", "lm_layer_norm_plain"]
 
 _LN_EPS = 1e-5   # the JAX package's transformer._LN_EPS
 
 _P = ctypes.c_void_p
 LM_LAYER_NORM = Kernel(
     "lm_layer_norm", "norm_kernels", "mxtpu_lm_layer_norm",
+    [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_float])
+# The first LM layer norm kernel (one block a row), with LM_LAYER_NORM's
+# arguments: a run on the card times it beside LM_LAYER_NORM; no path of the
+# package launches it.
+LM_LAYER_NORM_V1 = Kernel(
+    "lm_layer_norm_v1", "norm_kernels", "mxtpu_lm_layer_norm_v1",
     [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_float])
 LM_GELU_BIAS = Kernel(
     "lm_gelu_bias", "norm_kernels", "mxtpu_lm_gelu_bias",

@@ -42,16 +42,25 @@ def _inputs(shape, seed):
             rng.randn(c).astype(np.float32))
 
 
+# The generation lane's rows at the bench LM's width (C 1024): a decode
+# step's largest bucket and the largest prefill bucket, checked inside the
+# two cases of their kind so that the suite's count of tests stays as it is.
+_LANE_SHAPES = {(1, 1, 32): [(8, 1, 1024)], (2, 16, 32): [(1, 512, 1024)]}
+
+
 @pytest.mark.parametrize("shape", [(2, 16, 32), (1, 1, 32), (3, 21, 33)])
 def test_lm_layer_norm_matches_jax(shape):
-    x, gamma, beta = _inputs(shape, seed=sum(shape))
-    got = pnk.lm_layer_norm(torch.from_numpy(x), torch.from_numpy(gamma),
-                            torch.from_numpy(beta)).numpy()
-    jargs = (jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
-    kernel = np.asarray(jnk.fused_lm_layer_norm(*jargs))
-    stock = np.asarray(jtfm._lm_ln_stock(*jargs))
-    np.testing.assert_allclose(got, kernel, rtol=TOL, atol=TOL)
-    np.testing.assert_allclose(got, stock, rtol=TOL, atol=TOL)
+    for s in [shape] + _LANE_SHAPES.get(shape, []):
+        x, gamma, beta = _inputs(s, seed=sum(s))
+        got = pnk.lm_layer_norm(torch.from_numpy(x), torch.from_numpy(gamma),
+                                torch.from_numpy(beta)).numpy()
+        jargs = (jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+        kernel = np.asarray(jnk.fused_lm_layer_norm(*jargs))
+        stock = np.asarray(jtfm._lm_ln_stock(*jargs))
+        np.testing.assert_allclose(got, kernel, rtol=TOL, atol=TOL,
+                                   err_msg=str(s))
+        np.testing.assert_allclose(got, stock, rtol=TOL, atol=TOL,
+                                   err_msg=str(s))
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 128), (1, 1, 64), (3, 17, 65)])
@@ -83,6 +92,7 @@ def test_cpu_tensors_launch_no_kernel():
     pnk.lm_layer_norm(x, gamma, beta)
     pnk.lm_gelu_bias(x, beta)
     assert launch_counts()["lm_layer_norm"] == 0
+    assert launch_counts()["lm_layer_norm_v1"] == 0
     assert launch_counts()["lm_gelu_bias"] == 0
 
 
