@@ -13,7 +13,8 @@ Phases, each fatal on failure:
    shapes its path gives it (the generation lane's; the bench LM training
    step's: q, k, v [8, 16, 2048, 64] causal, the LayerNorm op on
    [8, 2048, 1024], the momentum step over every parameter of the bench
-   model; the 1x1-conv dgrad at each of the 12 shapes of the bench ResNet-50
+   model, in one multi-tensor launch and, in place, one per-op launch a
+   parameter (Module's route); the 1x1-conv dgrad at each of the 12 shapes of the bench ResNet-50
    step in bf16, one fp32 shape and ragged ones; the probe's two epilogue
    GEMMs at its five shapes, forms A and B with and without the residual
    and C, and at ragged shapes of both routes) and at a ragged shape, with
@@ -103,9 +104,25 @@ Phases, each fatal on failure:
    five ResNet-50 shapes; its calls must launch the TMA + wgmma kernels
    (``mm_epilogue`` 1020 times, ``mm_with_stats`` 510) and the wmma cores
    never.
-10. One JSON line ``{"kernels": [...]}`` with each kernel's launches (its
+10. ``Module.fit`` (``mx.mod.Module(sym, context=mx.gpu(0))``, an
+    ``NDArrayIter``, SGD lr 1e-3 momentum 0.9, ``Perplexity(None)``,
+    ``Speedometer``) trains the bench LM in bf16 from phase 6's seed-0
+    weights, one epoch of 5 batches of 8: every Perplexity reading finite;
+    step ms p50, peak memory, and from one profiled step the idle share and
+    the per-op momentum kernel's time; a step launches bf16 rows 1-3 12
+    times each, the LayerNorm op 25 and the per-op momentum step 126 (one a
+    parameter), and the multi-tensor step never.  Its first 3 steps are
+    held against ``ShardedTrainer``'s from the same weights (rescale_grad
+    1/8): every weight and momentum bitwise equal, since both run the same
+    ops in the same order.  A checkpoint round trip
+    (``save_checkpoint``, ``load_checkpoint``, a fresh Module bound with
+    ``for_training=False``) must ``score`` one batch bitwise as the trained
+    module does.  Then one Module.fit step of the LM cut to 2 layers,
+    batch 1, T 512, bf16, on the card and on the CPU, held to phase 5's
+    gates.
+11. One JSON line ``{"kernels": [...]}`` with each kernel's launches (its
     paths'; every kernel must have launched), error and times.
-11. The card line again and, last, ``{"ok": true, "device": {...}}``.
+12. The card line again and, last, ``{"ok": true, "device": {...}}``.
 
 It imports only ``mxnet_tpu_torch``, ``torch`` and ``numpy``, and exits
 non-zero, printing no result, when CUDA is not available or the package is
@@ -911,6 +928,41 @@ def check_training_kernels(dev, cfg):
     print("  [sgd_mom_update per-op entry, [%d, %d]] %.4f ms"
           % (4 * c, c, cuda_ms(lambda i: ok_.fused_sgd_mom_update(
               attrs, w1, g1, m1), 50)))
+    # the per-op entry in place (the optimizer's out=[weight, state]), once
+    # a parameter: Module.update's step
+    want = {n: ok_.sgd_mom_update_plain(attrs, params[n], grads[n], moms[n])
+            for n in names}
+    err_op = 0.0
+    for n in names:
+        ok_.fused_sgd_mom_update(attrs, params[n], grads[n], moms[n],
+                                 out=(params[n], moms[n]))
+        err_op = max(err_op, (params[n] - want[n][0]).abs().max().item(),
+                     (moms[n] - want[n][1]).abs().max().item())
+        if not (torch.equal(params[n], want[n][0])
+                and torch.equal(moms[n], want[n][1])):
+            raise SmokeError("sgd_mom_update in place differs from its "
+                             "plain version at %s" % n)
+    print("  sgd_mom_update in place, once a parameter: %d tensors, %d "
+          "elements: bitwise" % (len(names), nparams))
+    del want
+
+    def per_op(i):
+        for n in names:
+            ok_.fused_sgd_mom_update(attrs, params[n], grads[n], moms[n],
+                                     out=(params[n], moms[n]))
+
+    rows.append({
+        "name": "sgd_mom_update", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/optimizer_kernels.cu",
+        "replaces": "mxnet_tpu/ops/fused/optimizer_kernels.py:44",
+        "max_abs_err": err_op, "ms": cuda_ms(per_op, 3),
+        "plain_ms": cuda_ms(lambda i: [ok_.sgd_mom_update_plain(
+            attrs, params[n], grads[n], moms[n]) for n in names], 2),
+        "bound_ms": nb, "bound_by": by,
+        "library_ms": None})   # no one torch call does this update
+    print("  [sgd_mom_update per-op, the LM's %d parameters, one launch "
+          "each] %.4f ms a step, plain %.4f, bound %.4f (%s)"
+          % (len(names), rows[-1]["ms"], rows[-1]["plain_ms"], nb, by))
     return rows
 
 
@@ -1964,7 +2016,7 @@ BF16_LOGP_TOL = 4 * 2.0 ** -5
 DRIVE_STEPS = 5
 
 
-def _trainer(cfg, batch, device):
+def _trainer(cfg, batch, device, rescale_grad=None):
     import torch
 
     from mxnet_tpu_torch.models import transformer as tfm
@@ -1983,7 +2035,7 @@ def _trainer(cfg, batch, device):
         tfm.get_symbol(**cfg), None, data_shapes={"data": (batch, t)},
         label_shapes={"softmax_label": (batch, t)},
         type_dict={"data": "int32"}, learning_rate=1e-3, momentum=0.9,
-        rescale_grad=1.0 / (batch * t), device=device)
+        rescale_grad=rescale_grad or 1.0 / (batch * t), device=device)
     if on_card and matmul.allow_bf16_reduced_precision_reduction:
         raise SmokeError("ShardedTrainer on the card left cuBLAS's bf16 "
                          "reduced-precision reductions on")
@@ -2107,7 +2159,8 @@ _OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dkdv_bf16_v1_kernel", "flash_bwd_dq_bf16_v1_kernel",
                 "flash_bwd_dkdv_simt_kernel",
                 "flash_bwd_dq_simt_kernel", "ln_rows_kernel",
-                "sgd_mom_multi_kernel", "gemm_sm90_kernel",
+                "sgd_mom_multi_kernel", "sgd_mom_update_kernel",
+                "gemm_sm90_kernel",
                 "conv1x1_dgrad_kernel", "mm_epilogue_kernel",
                 "mm_stats_kernel")
 
@@ -2211,7 +2264,8 @@ def profile_step(run, p50, card, top):
     """Profile one ``run()`` (a training step): the card's busy time against
     the p50 step (its idle share), device time by kernel group, the ``top``
     kernels, and the NCHW <-> NHWC conversions (cuDNN's own transposes, or
-    a permute-then-copy), of which a channels-last step should have none."""
+    a permute-then-copy), of which a channels-last step should have none.
+    Returns the profiler's CUDA kernel events (None when it saw none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2252,6 +2306,7 @@ def profile_step(run, p50, card, top):
     print("  layout-conversion kernels in the profiled step: %d launches, "
           "%.2f ms" % (sum(e.count for e in relayout),
                        sum(e.self_device_time_total for e in relayout) / 1e3))
+    return kernels
 
 
 # ------------------------------------------------------------ phases 7-9
@@ -2555,6 +2610,230 @@ def run_probe(card):
                        r["C_torch"] / r["C_kernel"]))
     return counts
 
+# ----------------------------------------------------------------- phase 10
+
+# Module.fit over the bench LM in bf16: one epoch of an NDArrayIter over
+# MODULE_BATCHES batches of 8; the first MODULE_HELD steps again through
+# ShardedTrainer.
+MODULE_BATCHES = 5
+MODULE_HELD = 3
+# Launches a step of the Module path's kernels, per layer and per graph:
+# bf16 rows 1-3 once a layer, the LayerNorm op twice a layer and once at
+# the end, the per-op momentum step once a parameter.
+MODULE_ROWS = ("flash_fwd_bf16", "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
+               "layer_norm_op", "sgd_mom_update")
+
+
+def _module_fit(cfg, ctx, weights, data, label, batch, callbacks=()):
+    """``Module(context=ctx)`` over ``get_symbol(cfg)``, trained by
+    ``fit`` for one epoch of an NDArrayIter over ``data``/``label`` from
+    ``weights`` ({name: tensor}), SGD lr 1e-3 momentum 0.9 (rescale_grad
+    one over the batch, Module's default), Perplexity(None), and after
+    each batch ``callbacks``, then a Speedometer (which logs every second
+    batch and resets the metric).  Returns the module and the metric's
+    reading after each batch, before the Speedometer's reset."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import transformer as tfm
+
+    with ctx:
+        it = mx.io.NDArrayIter(data, label, batch_size=batch)
+        mod = mx.mod.Module(tfm.get_symbol(**cfg), context=ctx)
+        readings = []
+        mod.fit(it, num_epoch=1, eval_metric=mx.metric.Perplexity(None),
+                optimizer="sgd",
+                optimizer_params={"learning_rate": 1e-3, "momentum": 0.9},
+                arg_params={n: mx.nd.NDArray(w) for n, w in weights.items()},
+                batch_end_callback=list(callbacks) + [
+                    lambda p: readings.append(p.eval_metric.get()[1]),
+                    mx.callback.Speedometer(batch, 2)])
+    return mod, readings
+
+
+def _module_state(mod):
+    """A Module's parameters and momenta by name (tensors, not copies)."""
+    states = mod._updater.states
+    return ({n: mod._exec.arg_dict[n]._data for n in mod._param_names},
+            {n: states[i]._data for i, n in enumerate(mod._param_names)})
+
+
+def run_module(dev, card):
+    """Phase 10 (a)-(c): Module.fit trains the bench LM in bf16 on the
+    card; its first MODULE_HELD steps are held against ShardedTrainer's;
+    a checkpoint round trip scores the same.  Returns the launch counts
+    of the fit."""
+    import logging
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    logging.basicConfig(level=logging.INFO, format="  log: %(message)s")
+    cfg = dict(CFG, dtype="bfloat16")
+    t, b = cfg["seq_len"], TRAIN_BATCH
+    host = _host_batch(cfg, b * MODULE_BATCHES, SEED)
+    data, label = host["data"], host["softmax_label"]
+    torch.cuda.empty_cache()
+    # phase 6's seed-0 weights; the trainer keeps them for (b)
+    tr = _trainer(cfg, b, dev, rescale_grad=1.0 / b)
+    params, moms, aux = tr.init(seed=SEED)
+    torch.cuda.synchronize()
+
+    held, clock = {}, []
+
+    def after_batch(param):
+        torch.cuda.synchronize()
+        clock.append(time.perf_counter())
+        if param.nbatch == MODULE_HELD - 1:
+            w, m = _module_state(param.locals["self"])
+            held["w"] = {n: x.clone() for n, x in w.items()}
+            held["m"] = {n: x.clone() for n, x in m.items()}
+            torch.cuda.synchronize()
+            clock[-1] = time.perf_counter()
+
+    print("  (a) Module.fit, %d batches of %d, bf16, context %s"
+          % (MODULE_BATCHES, b, mx.gpu(dev.index)))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    # -- the main path: entry points a user calls ------------------------
+    t0 = time.perf_counter()
+    mod, ppl = _module_fit(cfg, mx.gpu(dev.index), params, data, label, b,
+                           [after_batch])
+    counts = launch_counts()
+    # -- end of the main path -------------------------------------------
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_params = len(mod._param_names)
+    step_ms = [(c1 - c0) * 1e3 for c0, c1 in zip(clock, clock[1:])]
+    p50 = float(np.percentile(step_ms, 50))
+    per_step = {n: counts[n] / MODULE_BATCHES for n in MODULE_ROWS}
+    print("  fit: %.1f s in all (bind, init_params, %d steps); %d "
+          "parameters, %d elements; Perplexity after each batch %s"
+          % (wall, MODULE_BATCHES, n_params, sum(
+              x.numel() for x in _module_state(mod)[0].values()),
+             ", ".join("%.4f" % x for x in ppl)))
+    print("  [%s] Module step ms p50 %.1f (steps 2-%d: %s), tokens/s %.0f, "
+          "peak memory %.2f GB" % (card, p50, MODULE_BATCHES, ", ".join(
+              "%.1f" % m for m in step_ms), b * t / p50 * 1e3, peak / 1e9))
+    print("  launches per step: %s" % json.dumps(per_step))
+    # ten parameters a layer, six outside them: 126 at 12 layers
+    layers = cfg["num_layers"]
+    want = {"flash_fwd_bf16": layers, "flash_bwd_dkdv_bf16": layers,
+            "flash_bwd_dq_bf16": layers, "layer_norm_op": 2 * layers + 1,
+            "sgd_mom_update": 10 * layers + 6}
+    if per_step != want or n_params != want["sgd_mom_update"] \
+            or counts["sgd_mom_multi"]:
+        raise SmokeError("Module.fit: %d parameters, launches per step %s, "
+                         "sgd_mom_multi %d; want %s and 0"
+                         % (n_params, per_step, counts["sgd_mom_multi"],
+                            want))
+    if len(ppl) != MODULE_BATCHES or not np.all(np.isfinite(ppl)):
+        raise SmokeError("Module.fit: Perplexity readings %r" % ppl)
+
+    with mx.gpu(dev.index):
+        batch = mx.io.NDArrayIter(data[:b], label[:b], batch_size=b).next()
+
+    metric = mx.metric.Perplexity(None)
+
+    def module_step():
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric, batch.label)
+
+    kernels = profile_step(module_step, p50, card, 10) or []
+    row8 = [e for e in kernels if "sgd_mom_update_kernel" in e.key]
+    print("  [%s] row 8 per-op in the profiled step: %d launches, %.3f ms "
+          "of kernel time" % (card, sum(e.count for e in row8), sum(
+              e.self_device_time_total for e in row8) / 1e3))
+
+    print("  (b) the first %d steps through ShardedTrainer" % MODULE_HELD)
+    batches = [tr.place_batch({"data": data[i * b:(i + 1) * b],
+                               "softmax_label": label[i * b:(i + 1) * b]})
+               for i in range(MODULE_HELD)]
+    step = tr.step_fn()
+    tr_ms = []
+    for one in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, params, moms, aux = step(params, moms, aux, one)
+        torch.cuda.synchronize()
+        tr_ms.append((time.perf_counter() - t0) * 1e3)
+    print("  [%s] ShardedTrainer step ms, same batches: %s (Module p50 "
+          "%.1f)" % (card, ", ".join("%.1f" % m for m in tr_ms), p50))
+    # the same ops in the same order: a weight that moved by less than a
+    # tolerance of its own scale would pass any gate short of equality
+    differ = ["%s %s" % (kind, n)
+              for kind, got, want_ in (("weight", held["w"], params),
+                                       ("momentum", held["m"], moms))
+              for n in want_ if not torch.equal(got[n], want_[n])]
+    print("  Module against ShardedTrainer after %d steps: %s"
+          % (MODULE_HELD, "bitwise equal" if not differ else
+             "%d tensors differ" % len(differ)))
+    if differ:
+        raise SmokeError("Module.fit after %d steps is not bitwise "
+                         "ShardedTrainer's: %s" % (MODULE_HELD,
+                                                   ", ".join(differ[:8])))
+    del held, params, moms, aux, tr, batches, step
+
+    print("  (c) checkpoint round trip")
+    with tempfile.TemporaryDirectory() as tmp, mx.gpu(dev.index):
+        prefix = os.path.join(tmp, "lm")
+        score = mod.score(mx.io.NDArrayIter(data[:b], label[:b],
+                                            batch_size=b),
+                          mx.metric.Perplexity(None))
+        t0 = time.perf_counter()
+        mod.save_checkpoint(prefix, 1)
+        saved = time.perf_counter() - t0
+        sym, args, auxs = mx.model.load_checkpoint(prefix, 1)
+        fresh = mx.mod.Module(sym, context=mx.gpu(dev.index))
+        it = mx.io.NDArrayIter(data[:b], label[:b], batch_size=b)
+        fresh.bind(data_shapes=it.provide_data,
+                   label_shapes=it.provide_label, for_training=False)
+        fresh.set_params(args, auxs)
+        again = fresh.score(it, mx.metric.Perplexity(None))
+    print("  save_checkpoint %.1f s; score of the trained module %r, of a "
+          "fresh one bound to the loaded checkpoint %r" % (saved, score,
+                                                           again))
+    if again != score:
+        raise SmokeError("checkpoint round trip: score %r, not %r"
+                         % (again, score))
+    return counts
+
+
+def check_module_step(dev):
+    """Phase 10 (d): one Module.fit step of the LM cut to 2 layers, batch
+    1, T 512, bf16, on the card and on the CPU from the same weights and
+    batch, held to phase 5's bf16 gates."""
+    import mxnet_tpu_torch as mx
+
+    cfg = dict(STEP_CHECK, dtype="bfloat16")
+    host = _host_batch(cfg, STEP_BATCH, SEED + 4)
+    weights = _trainer(cfg, STEP_BATCH, "cpu").init(seed=SEED)[0]
+
+    def step(ctx, device):
+        t0 = time.perf_counter()
+        mod, _ = _module_fit(cfg, ctx, {n: w.to(device) for n, w in
+                                        weights.items()},
+                             host["data"], host["softmax_label"], STEP_BATCH)
+        w, m = _module_state(mod)
+        print("  Module step on %s: %.1f s (bind and init included)"
+              % (ctx, time.perf_counter() - t0))
+        return {"softmax_output": mod.get_outputs()[0]._data}, w, m
+
+    card = step(mx.gpu(dev.index), dev)
+    cpu = step(mx.cpu(), "cpu")
+    worst, bad = _step_errors(card, cpu, "bfloat16")
+    print("  (d) card vs CPU, one Module.fit step of %d layers d%d T%d "
+          "bf16: outputs %.3e (%s), weights %.3e (%s), momenta %.3e (%s); "
+          "gates as phase 5" % ((cfg["num_layers"], cfg["num_embed"],
+                                  cfg["seq_len"]) + worst["output"]
+                                 + worst["weight"] + worst["momentum"]))
+    if bad:
+        raise SmokeError("Module step differs between card and CPU: %s"
+                         % "; ".join(bad))
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -2678,6 +2957,12 @@ def main():
 
     print("== phase 9: the bottleneck probe")
     path_counts.append(run_probe(card))
+
+    print("== phase 10: Module.fit, %d layers, d%d, batch %d, T %d, bfloat16"
+          % (CFG["num_layers"], CFG["num_embed"], TRAIN_BATCH,
+             CFG["seq_len"]))
+    path_counts.append(run_module(dev, card))
+    check_module_step(dev)
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts)

@@ -10,13 +10,41 @@ casts the input once and the logits back to fp32; the parameters and
 BatchNorm's moving statistics stay fp32.  ``layout="NHWC"`` transposes the
 NCHW input once at the stem.
 
-``convert_stem_to_s2d`` (which maps a conv7 checkpoint's NDArrays onto the
-s2d stem) waits for the port's NDArray.
+:func:`convert_stem_to_s2d` maps a conv7 checkpoint's ``conv0_weight``
+onto the s2d stem, exactly, so a converted checkpoint scores the same.
 """
+
+import numpy as np
+import torch
 
 from .. import symbol as sym
 
-__all__ = ["get_symbol", "resnet", "residual_unit"]
+__all__ = ["convert_stem_to_s2d", "get_symbol", "resnet", "residual_unit"]
+
+
+def convert_stem_to_s2d(arg_params):
+    """``arg_params`` (name → NDArray) with a conv7 NHWC stem's
+    ``conv0_weight`` (OHWI ``(F, 7, 7, C)``) remapped onto the s2d stem's
+    ``(F, 4, 4, 4C)``, on the same device; a converted one is returned as
+    it is."""
+    from ..ndarray import NDArray
+
+    out = dict(arg_params)
+    w_nd = out["conv0_weight"]
+    w = w_nd.asnumpy()
+    if w.shape[1:3] == (4, 4):
+        return out
+    f, kh, kw, c = w.shape
+    if (kh, kw) != (7, 7):
+        raise ValueError("conv0_weight %s is neither a 7x7 nor a 4x4 stem"
+                         % (w.shape,))
+    w8 = np.zeros((f, 8, 8, c), w.dtype)
+    w8[:, 1:, 1:] = w   # a leading zero row and column align the taps
+    ws = w8.reshape(f, 4, 2, 4, 2, c).transpose(0, 1, 3, 2, 4, 5) \
+        .reshape(f, 4, 4, 4 * c)
+    out["conv0_weight"] = NDArray(torch.from_numpy(np.ascontiguousarray(ws))
+                                  .to(w_nd._data.device))
+    return out
 
 BN_MOM = 0.9
 BN_EPS = 2e-5

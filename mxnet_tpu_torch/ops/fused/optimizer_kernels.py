@@ -6,8 +6,9 @@ Counterpart of ``mxnet_tpu/ops/fused/optimizer_kernels.py``
 ``fused_sgd_mom_tree``).  The kernel is in ``csrc/optimizer_kernels.cu``,
 with two entries:
 
-* :func:`fused_sgd_mom_update` -- one tensor, out of place (the registry
-  op ``sgd_mom_update``);
+* :func:`fused_sgd_mom_update` -- one tensor, out of place or into given
+  outputs (the registry op ``sgd_mom_update``, which the optimizer's
+  ``nd.sgd_mom_update(w, g, m, out=[w, m])`` runs once per parameter);
 * :func:`fused_sgd_mom_tree` -- every parameter in ONE launch, in place,
   with the ``skip_nonfinite`` flag read on the card (the trainer's step).
   The JAX trainer donates its step's inputs; the port writes the new
@@ -68,15 +69,22 @@ def sgd_mom_update_plain(attrs, w, g, mom):
     return w + new_mom, new_mom
 
 
-def fused_sgd_mom_update(attrs, w, g, mom):
-    """The per-op momentum step → new ``(w', m')`` tensors (the kernel
-    for CUDA tensors, :func:`sgd_mom_update_plain` for CPU ones)."""
-    if device_kind((w, g, mom)) == "cpu":
-        return sgd_mom_update_plain(attrs, w, g, mom)
-    for t in (w, g, mom):
+def fused_sgd_mom_update(attrs, w, g, mom, out=None):
+    """The per-op momentum step → ``(w', m')`` (the kernel for CUDA
+    tensors, :func:`sgd_mom_update_plain` for CPU ones).  New tensors, or
+    with ``out=(w_out, m_out)`` those, written in place; they may be ``w``
+    and ``mom`` themselves (the optimizer's ``out=[weight, state]``)."""
+    outs = () if out is None else tuple(out)
+    if device_kind((w, g, mom) + outs) == "cpu":
+        new_w, new_m = sgd_mom_update_plain(attrs, w, g, mom)
+        if out is None:
+            return new_w, new_m
+        outs[0].copy_(new_w)
+        outs[1].copy_(new_m)
+        return outs
+    w_out, m_out = outs or (torch.empty_like(w), torch.empty_like(mom))
+    for t in (w, g, mom, w_out, m_out):
         require("sgd_mom_update", t, torch.float32, w.shape)
-    w_out = torch.empty_like(w)
-    m_out = torch.empty_like(mom)
     SGD_MOM_UPDATE.launch(w.device, w.data_ptr(), g.data_ptr(),
                           mom.data_ptr(), w_out.data_ptr(), m_out.data_ptr(),
                           w.numel(), *_scalars(attrs))

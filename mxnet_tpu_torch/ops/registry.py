@@ -13,6 +13,10 @@ One registry; each op's compute rule is a function on torch tensors, and
 * ``fn(attrs, *tensors)`` -- the compute rule; with ``needs_mode`` it also
   takes ``is_train=`` (``BatchNorm`` uses batch statistics and updates its
   moving ones only when training).
+* ``writes_out`` -- the rule also takes ``out=``, a list of tensors to
+  write its outputs into, and returns them: an imperative call with
+  ``out=`` (``nd.sgd_mom_update(w, g, m, out=[w, m])``) then updates the
+  arrays' own storage in one kernel launch, with no copy.
 
 The JAX registry also carries a variant seam that runs a fused variant and,
 when the variant raises, books a fallback and runs the stock rule instead
@@ -108,7 +112,7 @@ class Op:
                  aux_names: Sequence[str] = (), num_outputs=1,
                  params: Optional[Dict[str, ParamSpec]] = None,
                  input_names_fn: Optional[Callable] = None,
-                 needs_mode: bool = False):
+                 needs_mode: bool = False, writes_out: bool = False):
         self.name = name
         self.fn = fn
         self.arg_names = list(arg_names)
@@ -117,6 +121,7 @@ class Op:
         self.params = params or {}
         self.input_names_fn = input_names_fn
         self.needs_mode = needs_mode
+        self.writes_out = writes_out
 
     def parse_attrs(self, kwargs: Dict) -> Dict:
         """Validate and parse keyword attributes into an attrs dict."""
@@ -142,10 +147,17 @@ class Op:
             return list(self.input_names_fn(attrs))
         return self.arg_names
 
-    def apply(self, attrs, args, auxs=(), is_train=False):
+    def apply(self, attrs, args, auxs=(), is_train=False, out=None):
         """Run the compute rule; returns ``(outputs, new_aux)`` lists.
-        ``is_train`` reaches only the ops that declare ``needs_mode``."""
+        ``is_train`` reaches only the ops that declare ``needs_mode``,
+        ``out`` (tensors to write the outputs into) only those that declare
+        ``writes_out``."""
         kw = {"is_train": is_train} if self.needs_mode else {}
+        if out is not None:
+            if not self.writes_out:
+                raise MXNetError("%s does not write into given outputs"
+                                 % self.name)
+            kw["out"] = list(out)
         out = self.fn(attrs, *args, *auxs, **kw)
         if not isinstance(out, tuple):
             out = (out,)

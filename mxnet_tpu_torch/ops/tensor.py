@@ -2,8 +2,8 @@
 ``ops/tensor.py``, as far as the transformer's and ResNet's symbols need it).
 
 ``Embedding``, ``Reshape`` (with MXNet's special codes), ``Flatten``,
-``transpose``, ``broadcast_add``, ``elemwise_add`` (the ``+`` of two
-symbols), ``Cast`` and the optimizer update ops ``sgd_update`` and
+``transpose``, the broadcasting and scalar arithmetic of NDArray's
+operators and ``elemwise_add`` (the ``+`` of two symbols), ``Cast`` and the optimizer update ops ``sgd_update`` and
 ``sgd_mom_update``.  Each compute
 rule takes ``(attrs, *tensors)``; plain PyTorch, differentiable by autograd,
 except ``sgd_mom_update``, which is the CUDA kernel's wrapper.
@@ -21,15 +21,36 @@ from .registry import P, register
 __all__ = ["infer_reshape"]
 
 
-@register("elemwise_add", aliases=["_plus", "_add"], arg_names=["lhs", "rhs"])
-def _elemwise_add(attrs, lhs, rhs):
-    return lhs + rhs
+def _binary(name, fn, aliases=()):
+    register(name, aliases=aliases, arg_names=["lhs", "rhs"])(
+        lambda attrs, lhs, rhs: fn(lhs, rhs))
 
 
-@register("broadcast_add", aliases=["broadcast_plus"],
-          arg_names=["lhs", "rhs"])
-def _broadcast_add(attrs, lhs, rhs):
-    return lhs + rhs
+def _binary_scalar(name, fn):
+    # the scalar takes the tensor's dtype, as in the JAX package
+    register(name, params={"scalar": P("float", 0.0, required=True)})(
+        lambda attrs, x: fn(x, torch.tensor(attrs["scalar"], dtype=x.dtype,
+                                            device=x.device)))
+
+
+# The arithmetic of the graphs (``elemwise_add`` is the ``+`` of two
+# symbols) and of NDArray's operators (``a - b``, ``a * 2``, ``-a``).
+for _names, _fn in ((("elemwise_add", "_plus", "_add"), torch.add),
+                    (("broadcast_add", "broadcast_plus"), torch.add),
+                    (("broadcast_sub", "broadcast_minus"), torch.sub),
+                    (("broadcast_mul",), torch.mul),
+                    (("broadcast_div",), torch.div),
+                    (("broadcast_mod",), torch.remainder),
+                    (("broadcast_power",), torch.pow)):
+    _binary(_names[0], _fn, aliases=_names[1:])
+for _name, _fn in (("_plus_scalar", torch.add), ("_minus_scalar", torch.sub),
+                   ("_rminus_scalar", lambda x, s: s - x),
+                   ("_mul_scalar", torch.mul), ("_div_scalar", torch.div),
+                   ("_rdiv_scalar", lambda x, s: s / x),
+                   ("_power_scalar", torch.pow),
+                   ("_mod_scalar", torch.remainder)):
+    _binary_scalar(_name, _fn)
+register("negative", aliases=["_neg"])(lambda attrs, x: -x)
 
 
 def infer_reshape(shape, target):
@@ -134,7 +155,7 @@ def _sgd_update(attrs, w, g):
 
 
 @register("sgd_mom_update", arg_names=["weight", "grad", "mom"],
-          num_outputs=2,
+          num_outputs=2, writes_out=True,
           params=dict(_OPT_COMMON, momentum=P("float", 0.0)))
-def _sgd_mom_update(attrs, w, g, mom):
-    return fused_sgd_mom_update(attrs, w, g, mom)
+def _sgd_mom_update(attrs, w, g, mom, out=None):
+    return fused_sgd_mom_update(attrs, w, g, mom, out)

@@ -12,12 +12,17 @@ tensors (shape and dtype, no data), where the JAX package uses
 ``jax.eval_shape``, and back-solves parameter shapes from the data shape
 for ``FullyConnected``, ``Convolution``, ``BatchNorm``, ``LayerNorm``,
 ``Embedding`` and ``MultiHeadAttention`` (``_try_param_solve``).  Every
-op runs in inference mode there, as in the JAX package.  JSON save and load are a
-later slice.
+op runs in inference mode there, as in the JAX package.
+
+``tojson``/``save`` and :func:`load_json`/:func:`load` write and read the
+JAX package's graph JSON (the reference's schema), so a ``-symbol.json``
+of either package loads in the other.  ``simple_bind``/``bind`` make an
+:class:`~.executor.Executor`.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 from typing import Dict, List, Optional, Tuple
 
@@ -25,11 +30,12 @@ import numpy as np
 import torch
 
 from .attribute import AttrScope
-from .base import MXNetError
+from .base import MXNetError, torch_dtype
 from .ops import registry as _registry
 from .ops.registry import Op, get_op, parse_shape
 
-__all__ = ["Group", "Symbol", "Variable", "infer", "torch_dtype"]
+__all__ = ["Group", "Symbol", "Variable", "infer", "load", "load_json",
+           "torch_dtype"]
 
 
 class Node:
@@ -128,11 +134,117 @@ class Symbol:
             self, {k: v for k, v in kwargs.items() if v is not None})
         return shapes, out_shapes, aux_shapes
 
+    def infer_shape_partial(self, **kwargs):
+        """:meth:`infer_shape`, with ``None`` where a shape is unknown."""
+        shapes, out_shapes, aux_shapes, _, _ = infer(
+            self, {k: v for k, v in kwargs.items() if v is not None},
+            partial=True)
+        return shapes, out_shapes, aux_shapes
+
+    # -- attributes -----------------------------------------------------
+    def attr_dict(self):
+        """``{node name: {attribute: string}}`` of every node that has
+        one: its string attributes and its op's parsed parameters."""
+        ret = {}
+        for node in self._topo():
+            d = dict(node.extra_attrs)
+            d.update({k: _attr_str(v) for k, v in node.attrs.items()
+                      if v is not None})
+            if d:
+                ret[node.name] = d
+        return ret
+
+    # -- serialization ---------------------------------------------------
+    def tojson(self):
+        """The graph in the JAX package's JSON (the reference's schema)."""
+        nodes = self._topo()
+        nid = {n._id: i for i, n in enumerate(nodes)}
+        jnodes = []
+        for n in nodes:
+            entry = {"op": "null" if n.is_variable else n.op.name,
+                     "name": n.name,
+                     "inputs": [[nid[src._id], idx, 0]
+                                for src, idx in n.inputs]}
+            attr = {k: _attr_str(v) for k, v in n.attrs.items()
+                    if v is not None}
+            attr.update(n.extra_attrs)
+            if n.is_aux:
+                attr["__is_aux__"] = "1"
+            if attr:
+                entry["attr"] = attr
+            jnodes.append(entry)
+        graph = {"nodes": jnodes,
+                 "arg_nodes": [i for i, n in enumerate(nodes)
+                               if n.is_variable],
+                 "node_row_ptr": list(range(len(nodes) + 1)),
+                 "heads": [[nid[n._id], i, 0] for n, i in self._outputs],
+                 "attrs": {"mxnet_version": ["int", 905]}}
+        return json.dumps(graph, indent=2)
+
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
+    # -- binding -----------------------------------------------------------
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
+        """An Executor with every array allocated (zeros) on ``ctx`` at the
+        shapes inferred from ``kwargs`` (input name → shape)."""
+        from .executor import Executor
+
+        return Executor._simple_bind(self, ctx, grad_req=grad_req,
+                                     type_dict=type_dict, group2ctx=group2ctx,
+                                     shared_exec=shared_exec, shapes=kwargs)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """An Executor over the given NDArrays (lists in
+        ``list_arguments`` order, or dicts by name)."""
+        from .executor import Executor
+
+        return Executor._bind(self, ctx, args, args_grad=args_grad,
+                              grad_req=grad_req, aux_states=aux_states,
+                              group2ctx=group2ctx, shared_exec=shared_exec)
+
 
 def _attr_str(v):
     if isinstance(v, (tuple, list)):
         return "(" + ", ".join(str(x) for x in v) + ")"
     return str(v)
+
+
+def load_json(json_str):
+    """A Symbol from graph JSON (either package's ``tojson``, or the
+    reference's, whose older files name the attributes ``param``).
+    Attributes that the op does not declare stay string attributes."""
+    graph = json.loads(json_str)
+    nodes: List[Node] = []
+    for jn in graph["nodes"]:
+        raw = dict(jn.get("attr", jn.get("param", {})) or {})
+        if isinstance(jn.get("attrs"), dict):
+            raw.update(jn["attrs"])
+        is_aux = raw.pop("__is_aux__", None) == "1"
+        if jn["op"] == "null":
+            nodes.append(Node(None, jn["name"], extra_attrs=raw,
+                              is_aux=is_aux))
+            continue
+        op = get_op(jn["op"])
+        known = {k: v for k, v in raw.items() if k in op.params}
+        extra = {k: v for k, v in raw.items() if k not in op.params}
+        attrs = op.parse_attrs(known)
+        inputs = [(nodes[e[0]], e[1]) for e in jn["inputs"]]
+        # inputs past the op's declared ones are its auxiliary states
+        for inode, _ in inputs[len(op.input_names(attrs)):]:
+            if inode.is_variable:
+                inode.is_aux = True
+        nodes.append(Node(op, jn["name"], attrs=attrs, inputs=inputs,
+                          extra_attrs=extra))
+    return Symbol([(nodes[h[0]], h[1]) for h in graph["heads"]])
+
+
+def load(fname):
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def Variable(name, attr=None, shape=None, dtype=None, **kwargs):
@@ -223,11 +335,6 @@ _init_module()
 # ----------------------------------------------------------------------
 # shape inference
 # ----------------------------------------------------------------------
-
-def torch_dtype(dtype):
-    """numpy dtype (or its name) → torch dtype."""
-    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
-
 
 def infer(symbol: Symbol, shape_dict: Dict[str, tuple], type_dict=None,
           partial=False):

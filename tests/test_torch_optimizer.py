@@ -13,15 +13,25 @@ both tree steps.  The Pallas kernel in interpret mode (jax 0.9 on the CPU)
 rounds differently from the JAX stock op itself, by up to 512 ulps where
 momentum and gradient nearly cancel, so against it the port is held to the
 fp32 class of the JAX parity harness, 2e-5 absolute and relative.
+
+The per-op cases also run the optimizer's imperative call,
+``nd.sgd_mom_update(w, g, m, out=[w, m])``, in both packages: the port's
+writes into the NDArrays' own storage and is bitwise the stock op; the
+JAX package's runs its stock op under ``jax.jit``, which XLA rounds as the
+interpret-mode kernel does, so it is held to the same fp32 class.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mxnet_tpu import context as jctx
+from mxnet_tpu import ndarray as jnd
 from mxnet_tpu.ops.fused import optimizer_kernels as jok
 from mxnet_tpu.ops.fused.parity import _PARITY
+from mxnet_tpu_torch import ndarray as pnd
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
 from mxnet_tpu_torch.ops.fused import optimizer_kernels as pok
 from mxnet_tpu_torch.ops.registry import get_op
@@ -53,6 +63,19 @@ def test_per_op_step_matches_stock_and_pallas_kernel(case):
     op = get_op("sgd_mom_update")
     (w2, m2), _ = op.apply(op.parse_attrs(attrs), list(map(_t, args)))
     assert torch.equal(w2, w) and torch.equal(m2, m)
+    # and so is the optimizer's imperative call, into the arrays' storage
+    jw, jg, jm = (jnd.array(np.asarray(a), ctx=jctx.cpu()) for a in args)
+    jnd.sgd_mom_update(jw, jg, jm, out=[jw, jm], **attrs)
+    with cpu():
+        nw, ng, nm = (pnd.array(np.asarray(a)) for a in args)
+    where = (nw._data.data_ptr(), nm._data.data_ptr())
+    got = pnd.sgd_mom_update(nw, ng, nm, out=[nw, nm], **attrs)
+    assert got[0] is nw and got[1] is nm
+    assert (nw._data.data_ptr(), nm._data.data_ptr()) == where
+    assert torch.equal(nw._data, w) and torch.equal(nm._data, m)
+    for got, want in ((nw, jw), (nm, jm)):
+        np.testing.assert_allclose(got.asnumpy(), want.asnumpy(), rtol=TOL,
+                                   atol=TOL)
 
 
 @pytest.mark.parametrize("case", _TREE.grid)

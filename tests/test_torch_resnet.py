@@ -30,9 +30,12 @@ import torch
 import jax
 from jax.sharding import Mesh
 
+from mxnet_tpu import context as jctx
+from mxnet_tpu import ndarray as jnd
 from mxnet_tpu.models import resnet as jres
 from mxnet_tpu.parallel.trainer import ShardedTrainer as JTrainer
 from mxnet_tpu.symbol import _infer as jinfer
+from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.models import resnet as pres
 from mxnet_tpu_torch.parallel import ShardedTrainer, trainer_state_from_jax
 from mxnet_tpu_torch.symbol import infer as pinfer
@@ -108,6 +111,37 @@ def test_resnet_symbols_match_jax():
         for i in (0, 2):
             assert [tuple(x) for x in got[i]] == \
                 [tuple(x) for x in want[i]], kw
+    _s2d_conversion_matches_jax()
+
+
+def _s2d_conversion_matches_jax():
+    """``convert_stem_to_s2d``: the JAX package's bits, and on the port's
+    executor the s2d stem with converted weights gives the conv7 stem's
+    output (18 layers, 64 px, NHWC; the JAX package's own test holds its
+    two stems to 1e-4 relative, 1e-5 absolute)."""
+    kw = dict(num_classes=5, num_layers=18, image_shape=(3, 64, 64),
+              layout="NHWC")
+    std, s2d = pres.get_symbol(**kw), pres.get_symbol(stem="s2d", **kw)
+    rng = np.random.RandomState(0)
+    with cpu():
+        ex1 = std.simple_bind(cpu(), data=(2, 3, 64, 64), grad_req="null")
+        for name, arr in ex1.arg_dict.items():
+            if name != "data":
+                arr[:] = (rng.randn(*arr.shape) * 0.1).astype(np.float32)
+        params = {k: v for k, v in ex1.arg_dict.items() if k != "data"}
+        got = pres.convert_stem_to_s2d(params)
+        assert pres.convert_stem_to_s2d(got) == got
+        w7 = params["conv0_weight"].asnumpy()
+        want = jres.convert_stem_to_s2d(
+            {"conv0_weight": jnd.array(w7, ctx=jctx.cpu())})
+        assert np.array_equal(got["conv0_weight"].asnumpy(),
+                              want["conv0_weight"].asnumpy())
+        ex2 = s2d.simple_bind(cpu(), data=(2, 3, 64, 64), grad_req="null")
+        ex2.copy_params_from(got)
+        x = rng.randn(2, 3, 64, 64).astype(np.float32)
+        o1 = ex1.forward(data=x)[0].asnumpy()
+        o2 = ex2.forward(data=x)[0].asnumpy()
+    np.testing.assert_allclose(o2, o1, rtol=1e-4, atol=1e-5)
 
 
 def _batch(seed):

@@ -4,7 +4,10 @@ ops against the JAX package.
 ``get_symbol`` at 2 layers, d32: the same argument names in the same
 order, the same inferred shapes, and the same forward output at every
 node of the graph (``get_internals``) from the same numpy weights, within
-2e-5 absolute and relative (fp32; the frameworks sum in different orders).
+2e-5 absolute and relative (fp32; the frameworks sum in different orders);
+the same outputs and gradients through each package's Executor
+(``simple_bind`` -> ``forward(is_train=True)`` -> ``backward()``), and
+the same graph JSON, each package loading the other's.
 ``SoftmaxOutput``'s gradient ignores the head gradient exactly as the JAX
 custom VJP does; held to 1e-6 (one softmax, no long sums).  The bf16
 graph (``dtype="bfloat16"``, the bench's): the same argument types (fp32
@@ -13,6 +16,7 @@ bf16 class of the JAX parity harness and every node within that class
 scaled to its tensor.
 """
 
+import json
 import re
 
 import numpy as np
@@ -22,6 +26,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from mxnet_tpu import context as jctx
+from mxnet_tpu import symbol as jsym
 from mxnet_tpu.executor import _graph_fn
 from mxnet_tpu.models import transformer as jtfm
 from mxnet_tpu.ops import tensor as jtensor
@@ -31,8 +37,10 @@ from mxnet_tpu.symbol import _infer
 from mxnet_tpu_torch import symbol as psym
 from mxnet_tpu_torch.attribute import AttrScope
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.executor import graph_fn
 from mxnet_tpu_torch.models import transformer as ptfm
+from mxnet_tpu_torch.module import Module
 from mxnet_tpu_torch.ops import tensor as ptensor
 from mxnet_tpu_torch.ops.registry import get_op
 
@@ -109,11 +117,81 @@ def _node_outputs(jsy, psy, args):
     return zip(jint.list_outputs(), jouts, pouts)
 
 
+def _anon_graph(text):
+    graph = json.loads(text)
+    for node in graph["nodes"]:
+        node["name"] = _anon(node["name"])
+    return graph
+
+
+def _anon_attrs(sy):
+    return {_anon(n): a for n, a in sy.attr_dict().items()}
+
+
+def _bound_step(sy, ctx, args):
+    """``simple_bind`` -> ``forward(is_train=True)`` -> ``backward()``:
+    the output and every gradient as numpy arrays."""
+    ex = sy.simple_bind(ctx, type_dict=TYPES, **SHAPES)
+    for n, a in args.items():
+        ex.arg_dict[n][:] = a
+    ex.forward(is_train=True)
+    ex.backward()
+    return (ex.outputs[0].asnumpy(),
+            {n: g.asnumpy() for n, g in ex.grad_dict.items()})
+
+
 def test_every_node_output_matches_jax(graphs):
     jsy, psy = graphs
-    for name, j, p in _node_outputs(jsy, psy, _node_args(jsy)):
+    args = _node_args(jsy)
+    for name, j, p in _node_outputs(jsy, psy, args):
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(j),
                                    rtol=TOL, atol=TOL, err_msg=name)
+    # the Executors: one training forward, then backward
+    jout, jgrads = _bound_step(jsy, jctx.cpu(), args)
+    with cpu():
+        pout, pgrads = _bound_step(psy, cpu(), args)
+    np.testing.assert_allclose(pout, jout, rtol=TOL, atol=TOL)
+    assert sorted(pgrads) == sorted(jgrads) == sorted(args)
+    for n in jgrads:
+        np.testing.assert_allclose(pgrads[n], jgrads[n], rtol=TOL, atol=TOL,
+                                   err_msg=n)
+    # the graph JSON: the same graph, and each package loads the other's
+    jjson = _anon_graph(jsy.tojson())
+    assert _anon_graph(psy.tojson()) == jjson
+    back_p = psym.load_json(jsy.tojson())
+    back_j = jsym.load_json(psy.tojson())
+    assert _anon_graph(back_p.tojson()) == _anon_graph(back_j.tojson()) \
+        == jjson
+    assert back_p.list_arguments() == psy.list_arguments()
+    assert _anon_attrs(back_p) == _anon_attrs(back_j) == _anon_attrs(jsy)
+    pt = {n: torch.from_numpy(a) for n, a in args.items()}
+    (want,), _ = graph_fn(psy)(pt, {})
+    (got,), _ = graph_fn(back_p)(pt, {})
+    assert torch.equal(got, want)
+    # grad_req "add" accumulates: two training steps hold twice the gradient
+    with cpu():
+        ex = psy.simple_bind(cpu(), grad_req="add", type_dict=TYPES,
+                             **SHAPES)
+        for n, a in args.items():
+            ex.arg_dict[n][:] = a
+        for _ in range(2):
+            ex.forward(is_train=True)
+            ex.backward()
+    for n in pgrads:
+        assert np.array_equal(ex.grad_dict[n].asnumpy(), 2 * pgrads[n]), n
+    # grad_req "write" keeps each gradient array's storage: a tensor held
+    # from before the steps reads the last step's gradient
+    with cpu():
+        ex = psy.simple_bind(cpu(), type_dict=TYPES, **SHAPES)
+        held = {n: g._data for n, g in ex.grad_dict.items()}
+        for n, a in args.items():
+            ex.arg_dict[n][:] = a
+        for _ in range(2):
+            ex.forward(is_train=True)
+            ex.backward()
+    for n in pgrads:
+        assert ex.grad_dict[n]._data is held[n], n
+        assert np.array_equal(held[n].numpy(), pgrads[n]), n
 
 
 def test_bf16_graph_types_and_nodes_match_jax():
@@ -196,6 +274,22 @@ def test_deferred_graph_features_raise():
         h = psym.FullyConnected(data, num_hidden=4, name="fc")
     with pytest.raises(MXNetError, match="__remat__"):
         graph_fn(h)
+    with pytest.raises(MXNetError, match="__remat__"):
+        h.simple_bind(cpu(), data=(2, 3))
+    fc = psym.FullyConnected(data, num_hidden=4, name="fc")
+    with pytest.raises(MXNetError, match="group2ctx"):
+        fc.simple_bind(cpu(), group2ctx={"a": cpu()}, data=(2, 3))
+    with pytest.raises(MXNetError, match="monitor"):
+        fc.simple_bind(cpu(), data=(2, 3)).set_monitor_callback(print)
+    with pytest.raises(MXNetError, match="shared_exec"):
+        fc.simple_bind(cpu(), shared_exec=fc.simple_bind(cpu(), data=(2, 3)),
+                       data=(2, 3))
+    with pytest.raises(MXNetError, match="work_load_list"):
+        Module(fc, data_names=["data"], label_names=None, context=cpu(),
+               work_load_list=[1])
+    mod = Module(fc, data_names=["data"], label_names=None, context=cpu())
+    with pytest.raises(MXNetError, match="shared_module"):
+        mod.bind([("data", (2, 3))], shared_module=mod)
     with pytest.raises(MXNetError, match="head"):
         ptfm.get_symbol(head="fused_ce")
     with pytest.raises(MXNetError, match="context_parallel_axis"):

@@ -11,6 +11,15 @@ one-layer softmax classifier (whose float input can carry the NaN).  The
 bench's own dtype, ``get_symbol(dtype="bfloat16")``, trains three steps
 with fp32 parameters and momenta to the JAX trainer's results within the
 bf16 class of the JAX parity harness (``parity._TOL``).
+
+The same LM tests train three steps through each package's ``Module.fit``
+(an ``NDArrayIter`` over three batches, SGD momentum, ``Perplexity``)
+from the JAX trainer's initial weights, held to the same tolerances, the
+Perplexity readings too.  The classifier cases run the repo's end-to-end
+drive (four Gaussian blobs, a two-layer MLP) through both packages'
+``Module.fit`` (Xavier, ``FactorScheduler``, ``Speedometer``, ten epochs)
+from one numpy seed, then score a checkpoint written by each package in
+the other.
 """
 
 import numpy as np
@@ -20,7 +29,10 @@ import torch
 import jax
 from jax.sharding import Mesh
 
+import mxnet_tpu as jmx
+import mxnet_tpu_torch as pmx
 from mxnet_tpu import symbol as jsym
+from mxnet_tpu.model import wait_for_checkpoint
 from mxnet_tpu.models import transformer as jtfm
 from mxnet_tpu.ops.fused.parity import _TOL
 from mxnet_tpu.parallel.trainer import ShardedTrainer as JTrainer
@@ -81,6 +93,72 @@ def _close(got, want, tol, what):
                                    err_msg="%s %s" % (what, n), **tol)
 
 
+def _module_state(mod):
+    """A Module's parameters and momenta (by parameter name) as numpy."""
+    args, _ = mod.get_params()
+    states = mod._updater.states
+    return ({n: a.asnumpy() for n, a in args.items()},
+            {n: states[i].asnumpy() for i, n in enumerate(mod._param_names)
+             if states.get(i) is not None})
+
+
+def _fit_lm(mx, cfg, weights):
+    """Three ``Module.fit`` steps of the LM on the CPU (one epoch of an
+    NDArrayIter over ``_lm_batch(0..2)``) with the trainer tests' update,
+    from ``weights``: ``(params, momenta, last outputs, the Perplexity
+    reading after each batch, the metric's last labels and outputs)``."""
+    tfm = jtfm if mx is jmx else ptfm
+    batches = [_lm_batch(i) for i in range(3)]
+    readings, last = [], []
+
+    def after_batch(param):
+        readings.append(param.eval_metric.get()[1])
+        last[:] = [param.locals["data_batch"].label,
+                   param.locals["self"].get_outputs()]
+
+    with mx.cpu():
+        it = mx.io.NDArrayIter(
+            np.concatenate([b["data"] for b in batches]),
+            np.concatenate([b["softmax_label"] for b in batches]),
+            batch_size=B)
+        mod = mx.mod.Module(tfm.get_symbol(**cfg), context=mx.cpu())
+        mod.fit(it, num_epoch=1, eval_metric=mx.metric.Perplexity(None),
+                optimizer="sgd", optimizer_params={
+                    "learning_rate": 1e-2, "momentum": 0.9,
+                    "rescale_grad": 1.0 / (B * T)},
+                arg_params={n: mx.nd.array(np.asarray(a))
+                            for n, a in weights.items()},
+                batch_end_callback=after_batch)
+        params, moms = _module_state(mod)
+    return (params, moms, mod.get_outputs()[0].asnumpy(), readings,
+            [a.asnumpy() for a in last[0]], [a.asnumpy() for a in last[1]])
+
+
+def _modules_agree(cfg, weights, tol, mom_tol, out_tol):
+    """Both packages' ``Module.fit`` steps agree within the tolerances
+    (``mom_tol``/``tol`` None: the bf16 class, scaled per tensor); so do
+    the two Perplexity metrics on the same labels and outputs."""
+    jp, jm, jo, jr, lab, outs = _fit_lm(jmx, cfg, weights)
+    pp, pm, po, pr, _, _ = _fit_lm(pmx, cfg, weights)
+    assert sorted(pp) == sorted(jp) and sorted(pm) == sorted(jm)
+    for what, got, want, t in (("param", pp, jp, tol), ("momentum", pm, jm,
+                                                         mom_tol)):
+        for n in want:
+            np.testing.assert_allclose(
+                got[n], want[n], err_msg="Module %s %s" % (what, n),
+                **(t or dict(rtol=out_tol["rtol"], atol=out_tol["atol"]
+                             * np.abs(want[n]).max())))
+    np.testing.assert_allclose(po, jo, **out_tol)
+    np.testing.assert_allclose(pr, jr, rtol=out_tol["rtol"])
+    jmet, pmet = jmx.metric.Perplexity(None), pmx.metric.Perplexity(None)
+    jmet.update(lab, outs)
+    with pmx.cpu():
+        pmet.update([pmx.nd.array(a) for a in lab],
+                    [pmx.nd.array(a) for a in outs])
+    assert pmet.num_inst == jmet.num_inst == B * T
+    np.testing.assert_allclose(pmet.get()[1], jmet.get()[1], rtol=1e-6)
+
+
 def test_three_lm_steps_match_jax():
     jt, pt = _pair(jtfm.get_symbol(**CFG), ptfm.get_symbol(**CFG),
                    {"data": (B, T), "softmax_label": (B, T)},
@@ -106,6 +184,8 @@ def test_three_lm_steps_match_jax():
                                    **OUT_TOL)
     _close(pp, jp, PARAM_TOL, "param")
     _close(pm, jm, MOM_TOL, "momentum")
+    weights = jt.init(seed=0)[0]
+    _modules_agree(CFG, weights, PARAM_TOL, MOM_TOL, OUT_TOL)
 
 
 def test_three_bf16_lm_steps_match_jax():
@@ -143,6 +223,8 @@ def test_three_bf16_lm_steps_match_jax():
             np.testing.assert_allclose(got[n].numpy(), w, rtol=rtol,
                                        atol=atol * np.abs(w).max(),
                                        err_msg="%s %s" % (what, n))
+    _modules_agree(cfg, jt.init(seed=0)[0], None, None,
+                   dict(rtol=rtol, atol=atol))
 
 
 def _classifier(lib):
@@ -159,11 +241,70 @@ def _cls_batch(seed, nan=False):
     return {"data": x, "softmax_label": np.array([0, 1, 4, 2], np.float32)}
 
 
+def _blobs():
+    rng = np.random.RandomState(0)
+    centers = rng.randn(4, 10) * 3.0
+    labels = rng.randint(0, 4, 400)
+    data = (centers[labels] + rng.randn(400, 10)).astype(np.float32)
+    return data, labels.astype(np.float32)
+
+
+def _blobs_net(mx):
+    net = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=32,
+                                name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    return mx.sym.SoftmaxOutput(mx.sym.FullyConnected(net, num_hidden=4,
+                                                      name="fc2"),
+                                name="softmax")
+
+
+def _fit_blobs(mx, momentum, prefix):
+    """The blobs recipe: ten epochs of ``Module.fit``, shuffled batches
+    and Xavier weights drawn from numpy's seed 0; then the training
+    accuracy, and a checkpoint at ``prefix``."""
+    data, labels = _blobs()
+    saved = np.random.get_state()
+    np.random.seed(0)
+    try:
+        with mx.cpu():
+            train = mx.io.NDArrayIter(data, labels, batch_size=40,
+                                      shuffle=True)
+            mod = mx.mod.Module(_blobs_net(mx), context=mx.cpu())
+            mod.fit(train, num_epoch=10, optimizer="sgd",
+                    optimizer_params={
+                        "learning_rate": 0.2, "momentum": momentum,
+                        "lr_scheduler":
+                            mx.lr_scheduler.FactorScheduler(20, 0.9)},
+                    initializer=mx.initializer.Xavier(),
+                    batch_end_callback=mx.callback.Speedometer(40, 5))
+    finally:
+        np.random.set_state(saved)
+    with mx.cpu():
+        acc = mod.score(mx.io.NDArrayIter(data, labels, batch_size=40), "acc")
+        mod.save_checkpoint(prefix, 1)
+        params, moms = _module_state(mod)
+    return params, moms, acc
+
+
+def _score_checkpoint(mx, prefix):
+    data, labels = _blobs()
+    with mx.cpu():
+        sym, args, auxs = mx.model.load_checkpoint(prefix, 1)
+        mod = mx.mod.Module(sym, context=mx.cpu())
+        mod.bind(data_shapes=[("data", (40, 10))],
+                 label_shapes=[("softmax_label", (40,))], for_training=False)
+        mod.set_params(args, auxs)
+        return mod.score(mx.io.NDArrayIter(data, labels, batch_size=40),
+                         "acc")
+
+
 @pytest.mark.parametrize("momentum,skip", [(0.0, False), (0.9, True)])
-def test_classifier_steps_match_jax(momentum, skip):
+def test_classifier_steps_match_jax(momentum, skip, tmp_path):
     """Momentum 0 takes the per-parameter ``sgd_update`` loop; with
     ``skip_nonfinite`` a NaN batch (the second) leaves every weight and
-    momentum as it was and the trailing flag reads 0.0."""
+    momentum as it was and the trailing flag reads 0.0.  Then the blobs
+    recipe through both packages' ``Module.fit`` at the case's momentum,
+    and each package's checkpoint scored by the other."""
     jt, pt = _pair(_classifier(jsym), _classifier(psym),
                    {"data": (4, 6), "softmax_label": (4,)}, {},
                    learning_rate=0.1, momentum=momentum, wd=1e-3,
@@ -188,12 +329,41 @@ def test_classifier_steps_match_jax(momentum, skip):
         _close(pm, jm, MOM_TOL, "momentum")
     assert (momentum == 0) == (pm == {} and jm == {})
 
+    jprefix, pprefix = str(tmp_path / "jax"), str(tmp_path / "port")
+    jp, jm, jacc = _fit_blobs(jmx, momentum, jprefix)
+    pp, pm, pacc = _fit_blobs(pmx, momentum, pprefix)
+    assert pacc == jacc and jacc[0][1] > 0.95
+    for n in jp:
+        np.testing.assert_allclose(pp[n], jp[n], err_msg="param " + n,
+                                   **PARAM_TOL)
+    assert sorted(pm) == sorted(jm) == ([] if momentum == 0 else sorted(jp))
+    for n in jm:
+        np.testing.assert_allclose(pm[n], jm[n], err_msg="momentum " + n,
+                                   **MOM_TOL)
+    wait_for_checkpoint(jprefix + "-0001.params")
+    assert _score_checkpoint(pmx, jprefix) == jacc
+    assert _score_checkpoint(jmx, pprefix) == pacc
+
 
 def test_device_none_needs_cuda(monkeypatch):
+    """The trainer, ``current_context()``, ``Module`` and ``mx.nd`` default
+    to the card, and without one raise (naming ``cpu()``); ``mx.gpu()``
+    and ``mx.tpu()`` name the same card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="no CUDA device"):
         ShardedTrainer(_classifier(psym), None, data_shapes={"data": (4, 6)},
                        label_shapes={"softmax_label": (4,)})
+    for make in (pmx.current_context, lambda: pmx.nd.zeros((2,)),
+                 lambda: pmx.mod.Module(_classifier(psym)),
+                 lambda: pmx.mod.Module(_classifier(psym),
+                                        context=pmx.tpu(0))):
+        with pytest.raises(MXNetError, match=r"mx\.cpu\(\)"):
+            make()
+    assert pmx.tpu(0) == pmx.gpu(0) != pmx.cpu(0)
+    with pmx.cpu():
+        assert pmx.current_context() == pmx.cpu()
+        assert pmx.nd.zeros((2,)).context == pmx.cpu()
+        pmx.mod.Module(_classifier(psym))
 
 
 @pytest.mark.parametrize("knob", [
