@@ -54,8 +54,17 @@ Phases, each fatal on failure:
    turns with the first bf16 forward and pair (v1), which keep head dim
    128, the forward's o and lse bitwise equal to v1's on every shape
    checked; the forward on two streams at once as the paged decode, at
-   the training shape and at [1, 4, 2048, 64].  The earlier kernels kept for these timings must launch on no
-   main path.
+   the training shape and at [1, 4, 2048, 64].  The per-op momentum step
+   (a grid sized to the card, several float4 groups a thread in flight)
+   and its first design (v1, one block a 64K-element chunk) bit for bit
+   against the plain version at n 1, 3, 255, 1023 and 65537, with the five
+   tensors aligned, 4 bytes past 16-byte alignment and with g alone 4 bytes
+   off, clipped, with a NaN gradient, in and out of place, and at each of
+   the LM's 126 parameters; timed in turns with v1 at each of the LM's 8
+   parameter sizes (each launch on its own region of 1.2 GB of buffers, so
+   from device memory), with the bound and the launch floor, and summed
+   over the 126.  The earlier kernels kept for these timings must launch on
+   no main path.
 4. The generation lane at the full width of the LM the repo benches
    (``bench.py``'s transformer: 12 layers, d1024, 16 heads of 64, FFN 4096,
    vocab 32000, seq_len 2048), fp32, random weights from a seed: an
@@ -109,12 +118,13 @@ Phases, each fatal on failure:
     ``Speedometer``) trains the bench LM in bf16 from phase 6's seed-0
     weights, one epoch of 5 batches of 8: every Perplexity reading finite;
     step ms p50, peak memory, and from one profiled step the idle share and
-    the per-op momentum kernel's time; a step launches bf16 rows 1-3 12
+    the per-op momentum kernel's time (the sum of its launches' spans, and
+    the time in which no other kernel ran); a step launches bf16 rows 1-3 12
     times each, the LayerNorm op 25 and the per-op momentum step 126 (one a
-    parameter), and the multi-tensor step never.  Its first 3 steps are
-    held against ``ShardedTrainer``'s from the same weights (rescale_grad
-    1/8): every weight and momentum bitwise equal, since both run the same
-    ops in the same order.  A checkpoint round trip
+    parameter), and neither the multi-tensor step nor v1.  Its first 3
+    steps are held against ``ShardedTrainer``'s from the same weights
+    (rescale_grad 1/8): every weight and momentum bitwise equal, since both
+    run the same ops in the same order.  A checkpoint round trip
     (``save_checkpoint``, ``load_checkpoint``, a fresh Module bound with
     ``for_training=False``) must ``score`` one batch bitwise as the trained
     module does.  Then one Module.fit step of the LM cut to 2 layers,
@@ -185,7 +195,8 @@ LANE_KERNELS = ("flash_prefill", "paged_decode", "lm_layer_norm",
 # the LM path).
 EARLIER_KERNELS = ("flash_fwd_simt", "layer_norm_op_v1", "lm_layer_norm_v1",
                    "paged_decode_v1", "flash_fwd_bf16_v1",
-                   "flash_bwd_dkdv_bf16_v1", "flash_bwd_dq_bf16_v1")
+                   "flash_bwd_dkdv_bf16_v1", "flash_bwd_dq_bf16_v1",
+                   "sgd_mom_update_v1")
 
 
 class SmokeError(Exception):
@@ -686,6 +697,255 @@ def float64_errors(inputs, grads, tag):
                                      for g, w in zip(got, want))))
 
 
+def sgd_v1(attrs, w, g, m, out=None):
+    """One launch of the per-op momentum step's first design (kept in the
+    library for the in-turn timings only), into ``out`` or new tensors."""
+    import torch
+
+    from mxnet_tpu_torch.ops.fused import optimizer_kernels as ok_
+
+    w_out, m_out = out or (torch.empty_like(w), torch.empty_like(m))
+    ok_.SGD_MOM_UPDATE_V1.launch(
+        w.device, w.data_ptr(), g.data_ptr(), m.data_ptr(), w_out.data_ptr(),
+        m_out.data_ptr(), w.numel(), *ok_._scalars(attrs))
+    return w_out, m_out
+
+
+def same_bits(got, want):
+    """Bit for bit where ``want`` is a number, and NaN where it is NaN."""
+    import torch
+
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.view(torch.int32)[~nan],
+                            want.view(torch.int32)[~nan]))
+
+
+def check_sgd_mom_cases(dev, attrs, clipped):
+    """The per-op step and its first design bit for bit against the plain
+    version at ragged sizes, with the five tensors aligned, all 4 bytes past
+    16-byte alignment (the new kernel's scalar head) and with g alone 4
+    bytes off (its scalar path), unclipped and clipped, with and without a
+    NaN gradient element, out of place and in place."""
+    import torch
+
+    from mxnet_tpu_torch.ops.fused import optimizer_kernels as ok_
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def placed(x, off):
+        """``x``'s values in a new buffer, ``off`` elements past its start."""
+        buf = torch.full((x.numel() + 4,), float("nan"), device=dev)
+        buf[off:off + x.numel()].copy_(x)
+        return buf[off:off + x.numel()]
+
+    cases = 0
+    for n in (1, 3, 255, 1023, 65537):
+        for place, offs in (("aligned", (0,) * 5), ("head", (1,) * 5),
+                            ("g off", (0, 1, 0, 0, 0))):
+            for at in (attrs, clipped):
+                for nan in (False, True):
+                    w, g, m = (placed(torch.randn(
+                        n, device=dev, generator=gen), o) for o in offs[:3])
+                    if nan:
+                        g[n // 2] = float("nan")
+                    want = ok_.sgd_mom_update_plain(at, w, g, m)
+                    for name, fn in (("sgd_mom_update",
+                                      ok_.fused_sgd_mom_update),
+                                     ("sgd_mom_update_v1", sgd_v1)):
+                        for in_place in (False, True):
+                            if in_place:
+                                wo, mo = placed(w, offs[0]), placed(m, offs[2])
+                                fn(at, wo, g, mo, out=(wo, mo))
+                            else:
+                                wo, mo = (placed(torch.zeros(n, device=dev),
+                                                 o) for o in offs[3:])
+                                fn(at, w, g, m, out=(wo, mo))
+                            if not (same_bits(wo, want[0])
+                                    and same_bits(mo, want[1])):
+                                raise SmokeError(
+                                    "%s differs from its plain version at n "
+                                    "%d, %s, clip %s, NaN %s, in place %s"
+                                    % (name, n, place, at["clip_gradient"],
+                                       nan, in_place))
+                            cases += 1
+    print("  sgd_mom_update and sgd_mom_update_v1: %d cases each bitwise (n "
+          "1, 3, 255, 1023, 65537; aligned, head-peeled, g misaligned; "
+          "clipped; a NaN gradient; in and out of place)" % (cases // 2))
+
+
+def check_sgd_mom(dev, cfg, randn, b, t):
+    """Row 8 on both routes at the bench model's parameters: the
+    multi-tensor launch over all of them; the per-op step (Module's route)
+    in place once a parameter, against its plain version and its first
+    design (v1) bit for bit, timed at each parameter size and summed, in
+    turns with v1.  Returns the two kernel rows of the JSON line."""
+    import torch
+
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.ops.fused import optimizer_kernels as ok_
+    from mxnet_tpu_torch.symbol import infer
+    from mxnet_tpu_torch.tools.sgd_mom_ab import cold_launch
+
+    c = cfg["num_embed"]
+    rows = []
+    attrs = {"lr": 1e-3, "wd": 1e-4, "momentum": 0.9,
+             "rescale_grad": 1.0 / (b * t), "clip_gradient": -1.0}
+    w1, g1, m1 = randn(4 * c, c), randn(4 * c, c), randn(4 * c, c)
+    clipped = dict(attrs, rescale_grad=1.0, clip_gradient=0.5)
+    for at, tag in ((attrs, "sgd_mom_update"), (clipped, "sgd_mom clip")):
+        got = ok_.fused_sgd_mom_update(at, w1, g1, m1)
+        want = ok_.sgd_mom_update_plain(at, w1, g1, m1)
+        exact(got[0], want[0], tag + " w")
+        exact(got[1], want[1], tag + " m")
+    del w1, g1, m1, got, want
+    check_sgd_mom_cases(dev, attrs, clipped)
+    sym = tfm.get_symbol(**cfg)
+    shapes = infer(sym, {"data": (b, t), "softmax_label": (b, t)},
+                   {"data": "int32"})[0]
+    names = [n for n in sym.list_arguments() if n not in ("data",
+                                                          "softmax_label")]
+    pshapes = dict(zip(sym.list_arguments(), shapes))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def tree():
+        return {n: torch.randn(pshapes[n], device=dev, generator=gen)
+                for n in names}
+
+    params, grads, moms = tree(), tree(), tree()
+    nparams = sum(p.numel() for p in params.values())
+    err = 0.0
+    for flag in (True, False):
+        okt = torch.tensor(flag, device=dev)
+        want = ok_.sgd_mom_tree_stock(attrs, params, grads, moms, okt)
+        p2 = {n: t_.clone() for n, t_ in params.items()}
+        m2 = {n: t_.clone() for n, t_ in moms.items()}
+        ok_.fused_sgd_mom_tree(attrs, p2, grads, m2, okt)
+        for n in names:
+            err = max(err, (p2[n] - want[0][n]).abs().max().item(),
+                      (m2[n] - want[1][n]).abs().max().item())
+            if not (torch.equal(p2[n], want[0][n])
+                    and torch.equal(m2[n], want[1][n])):
+                raise SmokeError("sgd_mom_multi (ok=%s) differs from the "
+                                 "plain tree step at %s" % (flag, n))
+        print("  sgd_mom_multi  ok=%-5s %d tensors, %d elements: bitwise"
+              % (flag, len(names), nparams))
+        del want, p2, m2
+    table_rows, chunk0 = [], 0
+    for n in names:
+        table_rows.append((params[n].data_ptr(), grads[n].data_ptr(),
+                           moms[n].data_ptr(), params[n].numel(), chunk0))
+        chunk0 += -(-params[n].numel() // ok_._CHUNK)
+    table = torch.tensor(table_rows, dtype=torch.int64, device=dev)
+    scalars = ok_._scalars(attrs)
+    nb, by = bound(20 * nparams, 7 * nparams)
+    rows.append({
+        "name": "sgd_mom_multi", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/optimizer_kernels.cu",
+        "replaces": "mxnet_tpu/ops/fused/optimizer_kernels.py:44",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda i: ok_.SGD_MOM_MULTI.launch(
+            dev, table.data_ptr(), len(names), chunk0, None, *scalars), 10),
+        "plain_ms": cuda_ms(lambda i: ok_.sgd_mom_tree_stock(
+            attrs, params, grads, moms), 2),
+        "bound_ms": nb, "bound_by": by,
+        "library_ms": None})   # no one torch call does this update
+    del table
+
+    # the per-op entry in place (the optimizer's out=[weight, state]), once
+    # a parameter: Module.update's step; v1 out of place on the same inputs
+    want = {n: ok_.sgd_mom_update_plain(attrs, params[n], grads[n], moms[n])
+            for n in names}
+    # the 126 launches captured into a CUDA graph (each lets the next start
+    # early, and the next waits for it before its first load), replayed once
+    # on copies
+    p2 = {n: x.clone() for n, x in params.items()}
+    m2 = {n: x.clone() for n, x in moms.items()}
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        for n in names:
+            ok_.fused_sgd_mom_update(attrs, p2[n], grads[n], m2[n],
+                                     out=(p2[n], m2[n]))
+    graph.replay()
+    torch.cuda.synchronize()
+    for n in names:
+        if not (torch.equal(p2[n], want[n][0])
+                and torch.equal(m2[n], want[n][1])):
+            raise SmokeError("sgd_mom_update replayed from a CUDA graph "
+                             "differs from its plain version at %s" % n)
+    del p2, m2, graph
+    err_op = 0.0
+    for n in names:
+        v1 = sgd_v1(attrs, params[n], grads[n], moms[n])
+        ok_.fused_sgd_mom_update(attrs, params[n], grads[n], moms[n],
+                                 out=(params[n], moms[n]))
+        err_op = max(err_op, (params[n] - want[n][0]).abs().max().item(),
+                     (moms[n] - want[n][1]).abs().max().item())
+        for got, tag in (((params[n], moms[n]), "sgd_mom_update in place"),
+                         (v1, "sgd_mom_update_v1")):
+            if not (torch.equal(got[0], want[n][0])
+                    and torch.equal(got[1], want[n][1])):
+                raise SmokeError("%s differs from its plain version at %s"
+                                 % (tag, n))
+    print("  sgd_mom_update in place (eager and replayed from a CUDA graph) "
+          "and sgd_mom_update_v1, once a parameter: %d tensors, %d elements: "
+          "bitwise" % (len(names), nparams))
+    del want, v1
+
+    # each parameter size in turns with v1, in place, each launch on its own
+    # region of 1.2 GB of buffers: from device memory as in a step, not from
+    # the 50 MB L2
+    sizes = {}
+    for n in names:
+        sizes[params[n].numel()] = sizes.get(params[n].numel(), 0) + 1
+    bufs = [torch.randn(3 * max(sizes), device=dev, generator=gen)
+            for _ in range(3)]
+
+    def cold(fn, n):
+        launch = cold_launch(lambda w, g, m, w_out, m_out: fn(
+            attrs, w, g, m, out=(w_out, m_out)), bufs, n)
+        return lambda i: launch()
+
+    one = torch.zeros(1, device=dev)
+    floor = cuda_ms(lambda i: one.zero_(), 200)
+    for n in sorted(sizes, reverse=True):
+        v1_ms, new_ms = in_turns(cold(sgd_v1, n),
+                                 cold(ok_.fused_sgd_mom_update, n), 50)
+        nb_n = bound(20 * n, 7 * n)[0]
+        print("  [sgd_mom_update per-op, %d elements, %d of the LM's tensors]"
+              " %.4f ms, v1 in turns %.4f, bound %.4f (share %.0f%%, v1 "
+              "%.0f%%), launch floor %.4f"
+              % (n, sizes[n], new_ms, v1_ms, nb_n, 100 * nb_n / new_ms,
+                 100 * nb_n / v1_ms, floor))
+    del bufs
+
+    def per_op(fn):
+        def run(i):
+            for n in names:
+                fn(attrs, params[n], grads[n], moms[n],
+                   out=(params[n], moms[n]))
+        return run
+
+    v1_sum, new_sum = in_turns(per_op(sgd_v1),
+                               per_op(ok_.fused_sgd_mom_update), 3)
+    rows.append({
+        "name": "sgd_mom_update", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/optimizer_kernels.cu",
+        "replaces": "mxnet_tpu/ops/fused/optimizer_kernels.py:44",
+        "max_abs_err": err_op, "ms": new_sum,
+        "plain_ms": cuda_ms(lambda i: [ok_.sgd_mom_update_plain(
+            attrs, params[n], grads[n], moms[n]) for n in names], 2),
+        "bound_ms": nb, "bound_by": by,
+        "library_ms": None})   # no one torch call does this update
+    print("  [sgd_mom_update per-op, the LM's %d parameters, one launch "
+          "each] %.4f ms a step (share %.0f%%), v1 in turns %.4f (%.0f%%), "
+          "plain %.4f, bound %.4f (%s)"
+          % (len(names), new_sum, 100 * nb / new_sum, v1_sum,
+             100 * nb / v1_sum, rows[-1]["plain_ms"], nb, by))
+    return rows
+
+
 def check_training_kernels(dev, cfg):
     """The training path's kernels against their plain versions at the
     shapes the bench step gives them (batch 8, T 2048, causal, D 64; the
@@ -695,12 +955,9 @@ def check_training_kernels(dev, cfg):
     import torch
     import torch.nn.functional as F
 
-    from mxnet_tpu_torch.models import transformer as tfm
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops.fused import attention_kernels as ak
     from mxnet_tpu_torch.ops.fused import norm_kernels as nk
-    from mxnet_tpu_torch.ops.fused import optimizer_kernels as ok_
-    from mxnet_tpu_torch.symbol import infer
 
     rng = np.random.RandomState(SEED + 3)
 
@@ -864,105 +1121,7 @@ def check_training_kernels(dev, cfg):
 
     rows.append(check_layer_norm_op(dev, (b, t, c), randn))
 
-    # the momentum step (row 8): per-op on one tensor, then the
-    # multi-tensor entry over the bench model's parameter list
-    attrs = {"lr": 1e-3, "wd": 1e-4, "momentum": 0.9,
-             "rescale_grad": 1.0 / (b * t), "clip_gradient": -1.0}
-    w1, g1, m1 = randn(4 * c, c), randn(4 * c, c), randn(4 * c, c)
-    clipped = dict(attrs, rescale_grad=1.0, clip_gradient=0.5)
-    for at, tag in ((attrs, "sgd_mom_update"), (clipped, "sgd_mom clip")):
-        got = ok_.fused_sgd_mom_update(at, w1, g1, m1)
-        want = ok_.sgd_mom_update_plain(at, w1, g1, m1)
-        exact(got[0], want[0], tag + " w")
-        exact(got[1], want[1], tag + " m")
-    sym = tfm.get_symbol(**cfg)
-    shapes = infer(sym, {"data": (b, t), "softmax_label": (b, t)},
-                   {"data": "int32"})[0]
-    names = [n for n in sym.list_arguments() if n not in ("data",
-                                                          "softmax_label")]
-    pshapes = dict(zip(sym.list_arguments(), shapes))
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def tree():
-        return {n: torch.randn(pshapes[n], device=dev, generator=gen)
-                for n in names}
-
-    params, grads, moms = tree(), tree(), tree()
-    nparams = sum(p.numel() for p in params.values())
-    err = 0.0
-    for flag in (True, False):
-        okt = torch.tensor(flag, device=dev)
-        want = ok_.sgd_mom_tree_stock(attrs, params, grads, moms, okt)
-        p2 = {n: t_.clone() for n, t_ in params.items()}
-        m2 = {n: t_.clone() for n, t_ in moms.items()}
-        ok_.fused_sgd_mom_tree(attrs, p2, grads, m2, okt)
-        for n in names:
-            err = max(err, (p2[n] - want[0][n]).abs().max().item(),
-                      (m2[n] - want[1][n]).abs().max().item())
-            if not (torch.equal(p2[n], want[0][n])
-                    and torch.equal(m2[n], want[1][n])):
-                raise SmokeError("sgd_mom_multi (ok=%s) differs from the "
-                                 "plain tree step at %s" % (flag, n))
-        print("  sgd_mom_multi  ok=%-5s %d tensors, %d elements: bitwise"
-              % (flag, len(names), nparams))
-        del want, p2, m2
-    table_rows, chunk0 = [], 0
-    for n in names:
-        table_rows.append((params[n].data_ptr(), grads[n].data_ptr(),
-                           moms[n].data_ptr(), params[n].numel(), chunk0))
-        chunk0 += -(-params[n].numel() // ok_._CHUNK)
-    table = torch.tensor(table_rows, dtype=torch.int64, device=dev)
-    scalars = ok_._scalars(attrs)
-    nb, by = bound(20 * nparams, 7 * nparams)
-    rows.append({
-        "name": "sgd_mom_multi", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/optimizer_kernels.cu",
-        "replaces": "mxnet_tpu/ops/fused/optimizer_kernels.py:44",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda i: ok_.SGD_MOM_MULTI.launch(
-            dev, table.data_ptr(), len(names), chunk0, None, *scalars), 10),
-        "plain_ms": cuda_ms(lambda i: ok_.sgd_mom_tree_stock(
-            attrs, params, grads, moms), 2),
-        "bound_ms": nb, "bound_by": by,
-        "library_ms": None})   # no one torch call does this update
-    print("  [sgd_mom_update per-op entry, [%d, %d]] %.4f ms"
-          % (4 * c, c, cuda_ms(lambda i: ok_.fused_sgd_mom_update(
-              attrs, w1, g1, m1), 50)))
-    # the per-op entry in place (the optimizer's out=[weight, state]), once
-    # a parameter: Module.update's step
-    want = {n: ok_.sgd_mom_update_plain(attrs, params[n], grads[n], moms[n])
-            for n in names}
-    err_op = 0.0
-    for n in names:
-        ok_.fused_sgd_mom_update(attrs, params[n], grads[n], moms[n],
-                                 out=(params[n], moms[n]))
-        err_op = max(err_op, (params[n] - want[n][0]).abs().max().item(),
-                     (moms[n] - want[n][1]).abs().max().item())
-        if not (torch.equal(params[n], want[n][0])
-                and torch.equal(moms[n], want[n][1])):
-            raise SmokeError("sgd_mom_update in place differs from its "
-                             "plain version at %s" % n)
-    print("  sgd_mom_update in place, once a parameter: %d tensors, %d "
-          "elements: bitwise" % (len(names), nparams))
-    del want
-
-    def per_op(i):
-        for n in names:
-            ok_.fused_sgd_mom_update(attrs, params[n], grads[n], moms[n],
-                                     out=(params[n], moms[n]))
-
-    rows.append({
-        "name": "sgd_mom_update", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/optimizer_kernels.cu",
-        "replaces": "mxnet_tpu/ops/fused/optimizer_kernels.py:44",
-        "max_abs_err": err_op, "ms": cuda_ms(per_op, 3),
-        "plain_ms": cuda_ms(lambda i: [ok_.sgd_mom_update_plain(
-            attrs, params[n], grads[n], moms[n]) for n in names], 2),
-        "bound_ms": nb, "bound_by": by,
-        "library_ms": None})   # no one torch call does this update
-    print("  [sgd_mom_update per-op, the LM's %d parameters, one launch "
-          "each] %.4f ms a step, plain %.4f, bound %.4f (%s)"
-          % (len(names), rows[-1]["ms"], rows[-1]["plain_ms"], nb, by))
+    rows += check_sgd_mom(dev, cfg, randn, b, t)
     return rows
 
 
@@ -2160,6 +2319,7 @@ _OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dkdv_simt_kernel",
                 "flash_bwd_dq_simt_kernel", "ln_rows_kernel",
                 "sgd_mom_multi_kernel", "sgd_mom_update_kernel",
+                "sgd_mom_update_v1_kernel",
                 "gemm_sm90_kernel",
                 "conv1x1_dgrad_kernel", "mm_epilogue_kernel",
                 "mm_stats_kernel")
@@ -2260,12 +2420,38 @@ def run_training(dev, cfg, card):
     return counts
 
 
-def profile_step(run, p50, card, top):
+def time_alone(spans, others):
+    """Microseconds in which some interval of ``spans`` runs and none of
+    ``others`` does (intervals ``(start, end)``)."""
+    def union(xs):
+        out = []
+        for a, b in sorted(xs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    mine, theirs = union(spans), union(others)
+    shared, i, j = 0.0, 0, 0
+    while i < len(mine) and j < len(theirs):
+        shared += max(0.0, min(mine[i][1], theirs[j][1])
+                      - max(mine[i][0], theirs[j][0]))
+        if mine[i][1] < theirs[j][1]:
+            i += 1
+        else:
+            j += 1
+    return sum(b - a for a, b in mine) - shared
+
+
+def profile_step(run, p50, card, top, spans=None):
     """Profile one ``run()`` (a training step): the card's busy time against
     the p50 step (its idle share), device time by kernel group, the ``top``
     kernels, and the NCHW <-> NHWC conversions (cuDNN's own transposes, or
     a permute-then-copy), of which a channels-last step should have none.
-    Returns the profiler's CUDA kernel events (None when it saw none)."""
+    Appends each kernel's ``(name, start us, end us)`` to ``spans`` when
+    given.  Returns the profiler's CUDA kernel events (None when it saw
+    none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2276,6 +2462,10 @@ def profile_step(run, p50, card, top):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
+    if spans is not None:
+        spans.extend((e.name, e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
     if not kernels:
         print("  device time by kernel: not measured (no CUDA events)")
         return
@@ -2723,11 +2913,12 @@ def run_module(dev, card):
             "flash_bwd_dq_bf16": layers, "layer_norm_op": 2 * layers + 1,
             "sgd_mom_update": 10 * layers + 6}
     if per_step != want or n_params != want["sgd_mom_update"] \
-            or counts["sgd_mom_multi"]:
+            or counts["sgd_mom_multi"] or counts["sgd_mom_update_v1"]:
         raise SmokeError("Module.fit: %d parameters, launches per step %s, "
-                         "sgd_mom_multi %d; want %s and 0"
-                         % (n_params, per_step, counts["sgd_mom_multi"],
-                            want))
+                         "sgd_mom_multi %d, sgd_mom_update_v1 %d; want %s "
+                         "and 0, 0" % (n_params, per_step,
+                                       counts["sgd_mom_multi"],
+                                       counts["sgd_mom_update_v1"], want))
     if len(ppl) != MODULE_BATCHES or not np.all(np.isfinite(ppl)):
         raise SmokeError("Module.fit: Perplexity readings %r" % ppl)
 
@@ -2741,11 +2932,20 @@ def run_module(dev, card):
         mod.update()
         mod.update_metric(metric, batch.label)
 
-    kernels = profile_step(module_step, p50, card, 10) or []
+    spans = []
+    kernels = profile_step(module_step, p50, card, 10, spans) or []
     row8 = [e for e in kernels if "sgd_mom_update_kernel" in e.key]
+    # a launch may start while the kernel before it ends and wait for it
+    # (programmatic dependent launch): its span then holds that wait, so the
+    # spans' sum counts the overlap; the time in which no other kernel runs
+    # does not
+    alone = time_alone(
+        [(a, b) for k, a, b in spans if "sgd_mom_update_kernel" in k],
+        [(a, b) for k, a, b in spans if "sgd_mom_update_kernel" not in k])
     print("  [%s] row 8 per-op in the profiled step: %d launches, %.3f ms "
-          "of kernel time" % (card, sum(e.count for e in row8), sum(
-              e.self_device_time_total for e in row8) / 1e3))
+          "of kernel time (the sum of their spans), %.3f ms in which no "
+          "other kernel ran" % (card, sum(e.count for e in row8), sum(
+              e.self_device_time_total for e in row8) / 1e3, alone / 1e3))
 
     print("  (b) the first %d steps through ShardedTrainer" % MODULE_HELD)
     batches = [tr.place_batch({"data": data[i * b:(i + 1) * b],

@@ -8,7 +8,8 @@ with two entries:
 
 * :func:`fused_sgd_mom_update` -- one tensor, out of place or into given
   outputs (the registry op ``sgd_mom_update``, which the optimizer's
-  ``nd.sgd_mom_update(w, g, m, out=[w, m])`` runs once per parameter);
+  ``nd.sgd_mom_update(w, g, m, out=[w, m])`` runs once per parameter),
+  on a grid sized to the card (:func:`_per_op_grid`);
 * :func:`fused_sgd_mom_tree` -- every parameter in ONE launch, in place,
   with the ``skip_nonfinite`` flag read on the card (the trainer's step).
   The JAX trainer donates its step's inputs; the port writes the new
@@ -17,7 +18,9 @@ with two entries:
 ``attrs`` is the update op's attribute dict: ``lr``, ``wd``, ``momentum``,
 ``rescale_grad`` and ``clip_gradient`` (``<= 0`` or ``None``: no clip).
 The arithmetic is the JAX spelling, each operation rounded on its own, so
-kernel and plain version agree bit for bit on the card.
+kernel and plain version agree bit for bit on the card.  The one-tensor
+step's first design stays in the library as ``SGD_MOM_UPDATE_V1``, for
+timing in turns; no path launches it.
 """
 
 from __future__ import annotations
@@ -27,9 +30,10 @@ import ctypes
 import torch
 
 from ...base import MXNetError
-from .._build import Kernel, device_kind, require
+from .._build import Kernel, device_kind, load, require
 
-__all__ = ["SGD_MOM_MULTI", "SGD_MOM_UPDATE", "fused_sgd_mom_tree",
+__all__ = ["SGD_MOM_MULTI", "SGD_MOM_UPDATE", "SGD_MOM_UPDATE_V1",
+           "fused_sgd_mom_tree",
            "fused_sgd_mom_update", "sgd_mom_tree_stock",
            "sgd_mom_update_plain"]
 
@@ -37,6 +41,9 @@ _P = ctypes.c_void_p
 _F = ctypes.c_float
 SGD_MOM_UPDATE = Kernel(
     "sgd_mom_update", "optimizer_kernels", "mxtpu_sgd_mom_update",
+    [_P] * 5 + [ctypes.c_longlong, ctypes.c_uint] + [_F] * 5)
+SGD_MOM_UPDATE_V1 = Kernel(
+    "sgd_mom_update_v1", "optimizer_kernels", "mxtpu_sgd_mom_update_v1",
     [_P] * 5 + [ctypes.c_longlong] + [_F] * 5)
 SGD_MOM_MULTI = Kernel(
     "sgd_mom_multi", "optimizer_kernels", "mxtpu_sgd_mom_multi",
@@ -45,6 +52,39 @@ SGD_MOM_MULTI = Kernel(
 # Elements per chunk of the multi-tensor launch: csrc/optimizer_kernels.cu
 # kChunk.
 _CHUNK = 1 << 16
+# Threads a block and float4 groups a thread keeps in flight in the per-op
+# launch: csrc/optimizer_kernels.cu kPerOpThreads, kPerOpUnroll.
+_PER_OP_THREADS = 256
+_PER_OP_UNROLL = 1
+_PER_OP_ELEMS = _PER_OP_THREADS * 4 * _PER_OP_UNROLL
+_waves = {}
+
+
+def _per_op_grid(n, sms, per_sm, elems=_PER_OP_ELEMS):
+    """Blocks of one per-op launch over ``n`` elements: one per ``elems``
+    (a block's elements in flight), so no block is left without work, at
+    most a full wave of ``per_sm`` resident blocks on each of ``sms`` SMs
+    (a grid-stride loop covers the rest); 0 for ``n`` 0."""
+    return min(-(-n // elems), per_sm * sms)
+
+
+def _per_op_wave(device):
+    """``(SMs, resident blocks an SM)`` of the per-op kernel on ``device``,
+    from the device and the occupancy API, once a device."""
+    if device.index not in _waves:
+        fn = load("optimizer_kernels").mxtpu_sgd_mom_update_blocks_per_sm
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = fn(ctypes.byref(blocks))
+        if rc != 0 or blocks.value < 1:
+            raise MXNetError("sgd_mom_update: occupancy query failed (%d)"
+                             % rc)
+        _waves[device.index] = (
+            torch.cuda.get_device_properties(device).multi_processor_count,
+            blocks.value)
+    return _waves[device.index]
 
 
 def _clip(attrs):
@@ -85,9 +125,12 @@ def fused_sgd_mom_update(attrs, w, g, mom, out=None):
     w_out, m_out = outs or (torch.empty_like(w), torch.empty_like(mom))
     for t in (w, g, mom, w_out, m_out):
         require("sgd_mom_update", t, torch.float32, w.shape)
-    SGD_MOM_UPDATE.launch(w.device, w.data_ptr(), g.data_ptr(),
-                          mom.data_ptr(), w_out.data_ptr(), m_out.data_ptr(),
-                          w.numel(), *_scalars(attrs))
+    grid = _per_op_grid(w.numel(), *_per_op_wave(w.device))
+    if grid:
+        SGD_MOM_UPDATE.launch(w.device, w.data_ptr(), g.data_ptr(),
+                              mom.data_ptr(), w_out.data_ptr(),
+                              m_out.data_ptr(), w.numel(), grid,
+                              *_scalars(attrs))
     return w_out, m_out
 
 

@@ -146,10 +146,11 @@ def _compile(sources, out_name="flash_bwd_bf16_ab", kernels=r"flash_bwd_\w+?_ker
                                     or "no wgmma serialization"))
         kernel = None
         for line in log.splitlines():
-            entry = re.search(
-                r"Compiling entry function '\w*?(%s)ILi(\d+)E" % kernels, line)
+            entry = re.search(r"Compiling entry function '\w*?(%s)(?:ILi(\d+)E)?"
+                              % kernels, line)
             if entry:
-                kernel = "%s<%s>" % entry.groups()
+                kernel = entry.group(1) + ("<%s>" % entry.group(2)
+                                           if entry.group(2) else "")
             elif kernel and ("spill" in line or "registers" in line):
                 print("    %s: %s" % (kernel, line.split(":", 1)[-1].strip()))
         libs[label] = ctypes.CDLL(so)

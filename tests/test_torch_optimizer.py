@@ -117,6 +117,17 @@ def test_cpu_steps_launch_no_kernel_and_other_devices_raise():
     pok.fused_sgd_mom_tree(attrs, {"a": w.clone()}, {"a": w}, {"a": w.clone()})
     counts = launch_counts()
     assert counts["sgd_mom_update"] == counts["sgd_mom_multi"] == 0
+    assert counts["sgd_mom_update_v1"] == 0
+    # the per-op launch's grid: at least one block, at most a wave of
+    # resident blocks, and none without a float4 group of its own
+    for per_sm in (1, 3, 8):
+        for n in (1, 3, 4, 1023, 65536, 65537, 1 << 20, 1 << 22,
+                  32000 * 1024):
+            grid = pok._per_op_grid(n, 132, per_sm)
+            assert 1 <= grid <= 132 * per_sm
+            assert grid <= -(-n // (pok._PER_OP_THREADS * 4
+                                    * pok._PER_OP_UNROLL))
+        assert pok._per_op_grid(0, 132, per_sm) == 0
     meta = torch.empty(5, device="meta")
     with pytest.raises(MXNetError):
         pok.fused_sgd_mom_update(attrs, meta, meta, meta)
