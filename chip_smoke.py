@@ -130,9 +130,30 @@ Phases, each fatal on failure:
     module does.  Then one Module.fit step of the LM cut to 2 layers,
     batch 1, T 512, bf16, on the card and on the CPU, held to phase 5's
     gates.
-11. One JSON line ``{"kernels": [...]}`` with each kernel's launches (its
+11. The other optimizers. (a) ``adam_update`` (t 3), ``rmsprop_update``
+    and ``rmspropalex_update`` at each of the bench LM's 8 parameter
+    shapes, and one update of every optimizer the Python API creates by
+    name (RMSProp in both settings) at [4096, 1024], on the card and on
+    the CPU from the same numpy draws, within the fp32 class (2e-5 abs +
+    rel), each reported bitwise or not; SGLD's noise held to its moments
+    on each device and repeated by a seed.  (b) Phase 10's drive with
+    ``optimizer="adam"`` (lr 1e-4): Perplexity finite, step ms p50, peak
+    memory, the idle share, ``Module.update`` alone (host wall, card span,
+    launches, beside a fused update's bound), launches per step (bf16 rows
+    1-3 12 each, the LayerNorm op 25, the per-op momentum step 0), and its
+    first 3 steps bitwise ``ShardedTrainer(optimizer="adam")``'s, every
+    weight, mean and variance, the step counter at 3.  (c) One
+    ``ShardedTrainer`` step of the LM cut to 2 layers, batch 1, T 512,
+    bf16, on the card and on the CPU, with ``adam`` and with
+    ``rmspropalex``, held to phase 5's gates: with Adam outputs, weights
+    (one that starts at zero where its mean fixes the sign of its step),
+    mean and variance; with rmspropalex outputs and the states that
+    follow the gradient, and the tensors the op normalises to about
+    +-4.6 lr a step (weights, delta) to the op's step from the card's own
+    states, within 2e-5 of their values and largest step.
+12. One JSON line ``{"kernels": [...]}`` with each kernel's launches (its
     paths'; every kernel must have launched), error and times.
-12. The card line again and, last, ``{"ok": true, "device": {...}}``.
+13. The card line again and, last, ``{"ok": true, "device": {...}}``.
 
 It imports only ``mxnet_tpu_torch``, ``torch`` and ``numpy``, and exits
 non-zero, printing no result, when CUDA is not available or the package is
@@ -2175,7 +2196,10 @@ BF16_LOGP_TOL = 4 * 2.0 ** -5
 DRIVE_STEPS = 5
 
 
-def _trainer(cfg, batch, device, rescale_grad=None):
+def _trainer(cfg, batch, device, rescale_grad=None, optimizer="sgd",
+             learning_rate=1e-3):
+    """ShardedTrainer over ``get_symbol(cfg)``: SGD momentum 0.9, or with
+    ``optimizer`` another update op (no momentum)."""
     import torch
 
     from mxnet_tpu_torch.models import transformer as tfm
@@ -2193,7 +2217,8 @@ def _trainer(cfg, batch, device, rescale_grad=None):
     tr = ShardedTrainer(
         tfm.get_symbol(**cfg), None, data_shapes={"data": (batch, t)},
         label_shapes={"softmax_label": (batch, t)},
-        type_dict={"data": "int32"}, learning_rate=1e-3, momentum=0.9,
+        type_dict={"data": "int32"}, learning_rate=learning_rate,
+        momentum=0.9 if optimizer == "sgd" else 0.0, optimizer=optimizer,
         rescale_grad=rescale_grad or 1.0 / (batch * t), device=device)
     if on_card and matmul.allow_bf16_reduced_precision_reduction:
         raise SmokeError("ShardedTrainer on the card left cuBLAS's bf16 "
@@ -2209,15 +2234,32 @@ def _host_batch(cfg, batch, seed):
             .astype(np.float32)}
 
 
-def _step_errors(got, want, dtype):
-    """Card against CPU for one step's ``(outputs, weights, momenta)``:
-    the worst reading of each kind ``(err, name)`` and the readings over
-    their gates."""
+def _flat_states(moms):
+    """Optimizer states by name, a state of several slots as ``name[i]``;
+    the step counter left out."""
+    out = {}
+    for n, st in moms.items():
+        if n == "__num_update__":
+            continue
+        if isinstance(st, tuple):
+            out.update(("%s[%d]" % (n, i), x) for i, x in enumerate(st))
+        else:
+            out[n] = st
+    return out
+
+
+def _step_errors(got, want, dtype, held=None):
+    """Card against CPU for one step's ``(outputs, weights, states)``: the
+    worst reading of each kind ``(err, name)`` and the readings over their
+    gates.  ``held`` maps a weight's name to the mask of the elements held
+    (all of them by default)."""
     import torch
 
     tol = STEP_TOL if dtype == "float32" else BF16_STEP_TOL
     worst, bad = {}, []
-    for kind, g_, w_ in zip(("output", "weight", "momentum"), got, want):
+    got, want = list(got), list(want)
+    got[2], want[2] = _flat_states(got[2]), _flat_states(want[2])
+    for kind, g_, w_ in zip(("output", "weight", "state"), got, want):
         for n in w_:
             if g_[n].dtype != w_[n].dtype or (
                     kind != "output" and w_[n].dtype != torch.float32):
@@ -2226,6 +2268,8 @@ def _step_errors(got, want, dtype):
                                      dtype, kind, n, g_[n].dtype,
                                      w_[n].dtype))
             g, w = g_[n].cpu().double(), w_[n].double()
+            if kind == "weight" and held and n in held:
+                g, w = g[held[n]], w[held[n]]
             if kind == "output" and dtype != "float32":
                 # probabilities from bf16 logits: compare their logs
                 err = (g.log() - w.log()).abs().max().item()
@@ -2285,7 +2329,7 @@ def check_training_step(dev, dtype="float32"):
           "(%s), weights %.3e (%s), momenta %.3e (%s); tolerance %.0e of "
           "each tensor's largest value%s"
           % ((dtype, cfg["num_layers"], cfg["num_embed"], cfg["seq_len"])
-             + worst["output"] + worst["weight"] + worst["momentum"]
+             + worst["output"] + worst["weight"] + worst["state"]
              + (tol, "" if dtype == "float32" else
                 ", outputs as max |log p card - log p CPU| <= %.4f"
                 % BF16_LOGP_TOL)))
@@ -2305,7 +2349,7 @@ def check_training_step(dev, dtype="float32"):
           "outputs %.3e (%s), weights %.3e (%s), momenta %.3e (%s); %d "
           "tensors over their gates" % ((dtype,) + worst["output"]
                                         + worst["weight"]
-                                        + worst["momentum"] + (len(bad),)))
+                                        + worst["state"] + (len(bad),)))
     if not bad:
         raise SmokeError("the %s step's gates pass a flash forward that "
                          "drops its last key tile" % dtype)
@@ -2814,14 +2858,20 @@ MODULE_ROWS = ("flash_fwd_bf16", "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
                "layer_norm_op", "sgd_mom_update")
 
 
-def _module_fit(cfg, ctx, weights, data, label, batch, callbacks=()):
+# The drives' optimizers: phase 10's SGD and phase 11's Adam.
+MODULE_OPTIMIZERS = {"sgd": {"learning_rate": 1e-3, "momentum": 0.9},
+                     "adam": {"learning_rate": 1e-4}}
+
+
+def _module_fit(cfg, ctx, weights, data, label, batch, callbacks=(),
+                optimizer="sgd"):
     """``Module(context=ctx)`` over ``get_symbol(cfg)``, trained by
     ``fit`` for one epoch of an NDArrayIter over ``data``/``label`` from
-    ``weights`` ({name: tensor}), SGD lr 1e-3 momentum 0.9 (rescale_grad
-    one over the batch, Module's default), Perplexity(None), and after
-    each batch ``callbacks``, then a Speedometer (which logs every second
-    batch and resets the metric).  Returns the module and the metric's
-    reading after each batch, before the Speedometer's reset."""
+    ``weights`` ({name: tensor}) with ``optimizer`` (MODULE_OPTIMIZERS;
+    rescale_grad one over the batch, Module's default), Perplexity(None),
+    and after each batch ``callbacks``, then a Speedometer (which logs every
+    second batch and resets the metric).  Returns the module and the
+    metric's reading after each batch, before the Speedometer's reset."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.models import transformer as tfm
 
@@ -2830,8 +2880,8 @@ def _module_fit(cfg, ctx, weights, data, label, batch, callbacks=()):
         mod = mx.mod.Module(tfm.get_symbol(**cfg), context=ctx)
         readings = []
         mod.fit(it, num_epoch=1, eval_metric=mx.metric.Perplexity(None),
-                optimizer="sgd",
-                optimizer_params={"learning_rate": 1e-3, "momentum": 0.9},
+                optimizer=optimizer,
+                optimizer_params=dict(MODULE_OPTIMIZERS[optimizer]),
                 arg_params={n: mx.nd.NDArray(w) for n, w in weights.items()},
                 batch_end_callback=list(callbacks) + [
                     lambda p: readings.append(p.eval_metric.get()[1]),
@@ -2840,17 +2890,68 @@ def _module_fit(cfg, ctx, weights, data, label, batch, callbacks=()):
 
 
 def _module_state(mod):
-    """A Module's parameters and momenta by name (tensors, not copies)."""
+    """A Module's parameters and optimizer states by name (tensors, not
+    copies; a state of several slots a tuple)."""
     states = mod._updater.states
+
+    def data(st):
+        return (tuple(x._data for x in st) if isinstance(st, tuple)
+                else st._data)
+
     return ({n: mod._exec.arg_dict[n]._data for n in mod._param_names},
-            {n: states[i]._data for i, n in enumerate(mod._param_names)})
+            {n: data(states[i]) for i, n in enumerate(mod._param_names)})
 
 
-def run_module(dev, card):
-    """Phase 10 (a)-(c): Module.fit trains the bench LM in bf16 on the
-    card; its first MODULE_HELD steps are held against ShardedTrainer's;
-    a checkpoint round trip scores the same.  Returns the launch counts
-    of the fit."""
+def _clone(state):
+    return (tuple(x.clone() for x in state) if isinstance(state, tuple)
+            else state.clone())
+
+
+def time_update(mod, card):
+    """Module.update alone (the optimizer's plain PyTorch update over every
+    parameter, on the last batch's gradients): host wall and the card's
+    span between two events, the median of 5; its kernels in one profiled
+    call, beside the bound of a fused update (read w, g and two states,
+    write w and the states once)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wall, span = [], []
+    for _ in range(5):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        mod.update()
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        span.append(e0.elapsed_time(e1))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mod.update()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    n = sum(x.numel() for x in _module_state(mod)[0].values())
+    fused, _ = bound(7 * 4 * n, 0)
+    print("  [%s] Module.update alone (%d elements): host wall %.3f ms, "
+          "card span %.3f ms (medians of 5); one profiled call: %d "
+          "launches, %.3f ms of kernels; a fused update's bound %.4f ms "
+          "(bytes)" % (card, n, float(np.median(wall)),
+                       float(np.median(span)),
+                       sum(e.count for e in kernels),
+                       sum(e.self_device_time_total for e in kernels) / 1e3,
+                       fused))
+
+
+def run_module(dev, card, optimizer="sgd"):
+    """Phase 10 (a)-(c), and with ``optimizer="adam"`` phase 11 (b):
+    Module.fit trains the bench LM in bf16 on the card; its first
+    MODULE_HELD steps are held against ShardedTrainer's; with SGD a
+    checkpoint round trip scores the same.  Returns the launch counts of
+    the fit."""
     import logging
     import tempfile
 
@@ -2860,13 +2961,15 @@ def run_module(dev, card):
     from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
 
     logging.basicConfig(level=logging.INFO, format="  log: %(message)s")
+    sgd = optimizer == "sgd"
     cfg = dict(CFG, dtype="bfloat16")
     t, b = cfg["seq_len"], TRAIN_BATCH
     host = _host_batch(cfg, b * MODULE_BATCHES, SEED)
     data, label = host["data"], host["softmax_label"]
     torch.cuda.empty_cache()
     # phase 6's seed-0 weights; the trainer keeps them for (b)
-    tr = _trainer(cfg, b, dev, rescale_grad=1.0 / b)
+    tr = _trainer(cfg, b, dev, rescale_grad=1.0 / b, optimizer=optimizer,
+                  learning_rate=MODULE_OPTIMIZERS[optimizer]["learning_rate"])
     params, moms, aux = tr.init(seed=SEED)
     torch.cuda.synchronize()
 
@@ -2878,18 +2981,19 @@ def run_module(dev, card):
         if param.nbatch == MODULE_HELD - 1:
             w, m = _module_state(param.locals["self"])
             held["w"] = {n: x.clone() for n, x in w.items()}
-            held["m"] = {n: x.clone() for n, x in m.items()}
+            held["m"] = {n: _clone(x) for n, x in m.items()}
             torch.cuda.synchronize()
             clock[-1] = time.perf_counter()
 
-    print("  (a) Module.fit, %d batches of %d, bf16, context %s"
-          % (MODULE_BATCHES, b, mx.gpu(dev.index)))
+    print("  %s Module.fit, %d batches of %d, bf16, %s %s, context %s"
+          % ("(a)" if sgd else "(b)", MODULE_BATCHES, b, optimizer,
+             json.dumps(MODULE_OPTIMIZERS[optimizer]), mx.gpu(dev.index)))
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     # -- the main path: entry points a user calls ------------------------
     t0 = time.perf_counter()
     mod, ppl = _module_fit(cfg, mx.gpu(dev.index), params, data, label, b,
-                           [after_batch])
+                           [after_batch], optimizer)
     counts = launch_counts()
     # -- end of the main path -------------------------------------------
     wall = time.perf_counter() - t0
@@ -2907,20 +3011,22 @@ def run_module(dev, card):
           "peak memory %.2f GB" % (card, p50, MODULE_BATCHES, ", ".join(
               "%.1f" % m for m in step_ms), b * t / p50 * 1e3, peak / 1e9))
     print("  launches per step: %s" % json.dumps(per_step))
-    # ten parameters a layer, six outside them: 126 at 12 layers
+    # ten parameters a layer, six outside them: 126 at 12 layers; the
+    # per-op momentum step once a parameter with SGD, never with Adam
     layers = cfg["num_layers"]
     want = {"flash_fwd_bf16": layers, "flash_bwd_dkdv_bf16": layers,
             "flash_bwd_dq_bf16": layers, "layer_norm_op": 2 * layers + 1,
-            "sgd_mom_update": 10 * layers + 6}
-    if per_step != want or n_params != want["sgd_mom_update"] \
+            "sgd_mom_update": 10 * layers + 6 if sgd else 0}
+    if per_step != want or n_params != 10 * layers + 6 \
             or counts["sgd_mom_multi"] or counts["sgd_mom_update_v1"]:
-        raise SmokeError("Module.fit: %d parameters, launches per step %s, "
-                         "sgd_mom_multi %d, sgd_mom_update_v1 %d; want %s "
-                         "and 0, 0" % (n_params, per_step,
-                                       counts["sgd_mom_multi"],
-                                       counts["sgd_mom_update_v1"], want))
+        raise SmokeError("Module.fit (%s): %d parameters, launches per step "
+                         "%s, sgd_mom_multi %d, sgd_mom_update_v1 %d; want "
+                         "%s and 0, 0" % (optimizer, n_params, per_step,
+                                          counts["sgd_mom_multi"],
+                                          counts["sgd_mom_update_v1"], want))
     if len(ppl) != MODULE_BATCHES or not np.all(np.isfinite(ppl)):
-        raise SmokeError("Module.fit: Perplexity readings %r" % ppl)
+        raise SmokeError("Module.fit (%s): Perplexity readings %r"
+                         % (optimizer, ppl))
 
     with mx.gpu(dev.index):
         batch = mx.io.NDArrayIter(data[:b], label[:b], batch_size=b).next()
@@ -2934,20 +3040,25 @@ def run_module(dev, card):
 
     spans = []
     kernels = profile_step(module_step, p50, card, 10, spans) or []
-    row8 = [e for e in kernels if "sgd_mom_update_kernel" in e.key]
-    # a launch may start while the kernel before it ends and wait for it
-    # (programmatic dependent launch): its span then holds that wait, so the
-    # spans' sum counts the overlap; the time in which no other kernel runs
-    # does not
-    alone = time_alone(
-        [(a, b) for k, a, b in spans if "sgd_mom_update_kernel" in k],
-        [(a, b) for k, a, b in spans if "sgd_mom_update_kernel" not in k])
-    print("  [%s] row 8 per-op in the profiled step: %d launches, %.3f ms "
-          "of kernel time (the sum of their spans), %.3f ms in which no "
-          "other kernel ran" % (card, sum(e.count for e in row8), sum(
-              e.self_device_time_total for e in row8) / 1e3, alone / 1e3))
+    if sgd:
+        row8 = [e for e in kernels if "sgd_mom_update_kernel" in e.key]
+        # a launch may start while the kernel before it ends and wait for
+        # it (programmatic dependent launch): its span then holds that wait,
+        # so the spans' sum counts the overlap; the time in which no other
+        # kernel runs does not
+        alone = time_alone(
+            [(a, b) for k, a, b in spans if "sgd_mom_update_kernel" in k],
+            [(a, b) for k, a, b in spans if "sgd_mom_update_kernel" not in k])
+        print("  [%s] row 8 per-op in the profiled step: %d launches, %.3f "
+              "ms of kernel time (the sum of their spans), %.3f ms in which "
+              "no other kernel ran" % (card, sum(e.count for e in row8), sum(
+                  e.self_device_time_total for e in row8) / 1e3,
+                  alone / 1e3))
+    else:
+        time_update(mod, card)
 
-    print("  (b) the first %d steps through ShardedTrainer" % MODULE_HELD)
+    print("  %s the first %d steps through ShardedTrainer"
+          % ("(b)" if sgd else "   ", MODULE_HELD))
     batches = [tr.place_batch({"data": data[i * b:(i + 1) * b],
                                "softmax_label": label[i * b:(i + 1) * b]})
                for i in range(MODULE_HELD)]
@@ -2963,18 +3074,28 @@ def run_module(dev, card):
           "%.1f)" % (card, ", ".join("%.1f" % m for m in tr_ms), p50))
     # the same ops in the same order: a weight that moved by less than a
     # tolerance of its own scale would pass any gate short of equality
+    count = moms.get("__num_update__")
+    mine, theirs = _flat_states(held["m"]), _flat_states(moms)
     differ = ["%s %s" % (kind, n)
               for kind, got, want_ in (("weight", held["w"], params),
-                                       ("momentum", held["m"], moms))
+                                       ("state", mine, theirs))
               for n in want_ if not torch.equal(got[n], want_[n])]
-    print("  Module against ShardedTrainer after %d steps: %s"
-          % (MODULE_HELD, "bitwise equal" if not differ else
-             "%d tensors differ" % len(differ)))
+    if sorted(mine) != sorted(theirs):
+        differ.append("state names")
+    if not sgd and (count is None or int(count) != MODULE_HELD):
+        differ.append("the step counter (%r)" % count)
+    print("  Module against ShardedTrainer after %d steps: %s (%d weights, "
+          "%d state tensors%s)" % (
+              MODULE_HELD, "bitwise equal" if not differ else
+              "%d differ" % len(differ), len(params), len(theirs),
+              "" if sgd else ", step counter %d" % int(count)))
     if differ:
-        raise SmokeError("Module.fit after %d steps is not bitwise "
-                         "ShardedTrainer's: %s" % (MODULE_HELD,
+        raise SmokeError("Module.fit (%s) after %d steps is not bitwise "
+                         "ShardedTrainer's: %s" % (optimizer, MODULE_HELD,
                                                    ", ".join(differ[:8])))
-    del held, params, moms, aux, tr, batches, step
+    del held, params, moms, aux, tr, batches, step, mine, theirs
+    if not sgd:
+        return counts
 
     print("  (c) checkpoint round trip")
     with tempfile.TemporaryDirectory() as tmp, mx.gpu(dev.index):
@@ -3028,10 +3149,277 @@ def check_module_step(dev):
           "bf16: outputs %.3e (%s), weights %.3e (%s), momenta %.3e (%s); "
           "gates as phase 5" % ((cfg["num_layers"], cfg["num_embed"],
                                   cfg["seq_len"]) + worst["output"]
-                                 + worst["weight"] + worst["momentum"]))
+                                 + worst["weight"] + worst["state"]))
     if bad:
         raise SmokeError("Module step differs between card and CPU: %s"
                          % "; ".join(bad))
+
+
+# ----------------------------------------------------------------- phase 11
+
+# Adam's step count in (a): its bias correction away from step 1.
+UPDATE_T = 3
+# The update ops' arguments in (a), a Module step's at the bench batch.
+UPDATE_ATTRS = {"lr": 1e-4, "wd": 1e-4, "rescale_grad": 1.0 / 8,
+                "clip_gradient": -1.0}
+# The update ops' states from a weight w and a draw m: second moments
+# non-negative, rmspropalex's n at least g^2, so its root stays real.
+UPDATE_STATES = {"adam_update": lambda w, m: (m, m * m),
+                 "rmsprop_update": lambda w, m: (m * m,),
+                 "rmspropalex_update": lambda w, m: (m * m + w * w, m, w)}
+# Every optimizer the Python API creates by name (RMSProp in both
+# settings), one update each of a [4096, 1024] weight.
+PY_OPTIMIZERS = (("sgd", {"momentum": 0.9}), ("nag", {"momentum": 0.9}),
+                 ("sgld", {}), ("ccsgd", {"momentum": 0.9}), ("adam", {}),
+                 ("adagrad", {}), ("rmsprop", {}),
+                 ("rmsprop", {"centered": True}), ("adadelta", {}),
+                 ("ftrl", {}), ("dcasgd", {"momentum": 0.9}), ("test", {}))
+PY_OPT_SHAPE = (4096, 1024)
+PY_OPT_COMMON = {"learning_rate": 1e-3, "wd": 1e-4, "rescale_grad": 0.125,
+                 "clip_gradient": 0.25}
+
+
+def _lm_param_shapes(cfg):
+    """The bench LM's parameter shapes and how many parameters have each."""
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.symbol import infer
+
+    sym = tfm.get_symbol(**cfg)
+    b, t = TRAIN_BATCH, cfg["seq_len"]
+    shapes = infer(sym, {"data": (b, t), "softmax_label": (b, t)},
+                   {"data": "int32"})[0]
+    out = {}
+    for n, shp in zip(sym.list_arguments(), shapes):
+        if n not in ("data", "softmax_label"):
+            out[tuple(shp)] = out.get(tuple(shp), 0) + 1
+    return out
+
+
+def fp32_share(got, want):
+    """Largest |got - want| over the fp32 class's gate, 2e-5 (1 + |want|)."""
+    g, w = got.double(), want.double()
+    return ((g - w).abs() / (TOL + TOL * w.abs())).max().item()
+
+
+def check_update_ops(dev):
+    """Phase 11 (a), the ops: adam_update (t = UPDATE_T), rmsprop_update
+    and rmspropalex_update at each of the bench LM's parameter shapes, on
+    the card and on the CPU from the same numpy draws, within the fp32
+    class; prints whether each is bitwise."""
+    import torch
+
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    rng = np.random.default_rng(SEED + 11)
+    shapes = _lm_param_shapes(dict(CFG, dtype="bfloat16"))
+    same, total, worst = 0, 0, (0.0, "")
+    for shape, count in shapes.items():
+        w, g, m = (rng.standard_normal(shape, dtype=np.float32)
+                   for _ in range(3))
+        line = []
+        for name, make in UPDATE_STATES.items():
+            op = get_op(name)
+            attrs = op.parse_attrs(dict(UPDATE_ATTRS, t=UPDATE_T)
+                                   if "t" in op.params else UPDATE_ATTRS)
+            ins = [torch.from_numpy(a) for a in (w, g) + make(w, m)]
+            cpu = op.apply(attrs, ins)[0]
+            card = [x.cpu() for x in op.apply(
+                attrs, [x.to(dev) for x in ins])[0]]
+            share = max(fp32_share(a, b) for a, b in zip(card, cpu))
+            bits = all(torch.equal(a, b) for a, b in zip(card, cpu))
+            same += bits
+            total += 1
+            if share >= worst[0]:
+                worst = (share, "%s at %s" % (name, list(shape)))
+            # how many elements of each output differ, in the op's order
+            line.append("%s %s" % (name, "bitwise" if bits else
+                                   "%.3f of the gate, %s of %d differ" % (
+                                       share, "/".join(
+                                           str(int((a != b).sum()))
+                                           for a, b in zip(card, cpu)),
+                                       cpu[0].numel())))
+            if not share <= 1.0:
+                raise SmokeError("%s at %s: card against CPU %.3f of the "
+                                 "fp32 gate" % (name, list(shape), share))
+            del ins, cpu, card
+        print("  %-14s x%-3d %s" % (list(shape), count, "; ".join(line)))
+    print("  update ops, card against CPU: %d of %d bitwise, the largest "
+          "error %.3f of the fp32 gate (%s)" % ((same, total) + worst))
+
+
+def _one_update(mx, ctx, name, kw, w, g):
+    """One update of optimizer ``name`` on ``ctx``: the weight and the
+    states as CPU tensors."""
+    opt = mx.optimizer.create(name, **dict(PY_OPT_COMMON, **kw))
+    updater = mx.optimizer.get_updater(opt)
+    with ctx:
+        weight = mx.nd.array(w)
+        updater(0, mx.nd.array(g), weight)
+    state = updater.states[0]
+    state = state if isinstance(state, tuple) else (state,)
+    return [weight._data.cpu()] + [x._data.cpu() for x in state
+                                   if x is not None]
+
+
+def check_optimizers(dev):
+    """Phase 11 (a), the optimizers: one update of each at PY_OPT_SHAPE on
+    the card and on the CPU, within the fp32 class; SGLD's noise (the
+    update less its deterministic part) held to its moments on each device
+    and repeated by a seed on the card."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.default_rng(SEED + 12)
+    w, g = (rng.standard_normal(PY_OPT_SHAPE, dtype=np.float32)
+            for _ in range(2))
+    ctxs = (mx.gpu(dev.index), mx.cpu())
+    lr, wd = PY_OPT_COMMON["learning_rate"], PY_OPT_COMMON["wd"]
+    clip = PY_OPT_COMMON["clip_gradient"]
+    det = w - lr / 2 * (np.clip(g.astype(np.float64)
+                                * PY_OPT_COMMON["rescale_grad"], -clip, clip)
+                        + wd * w.astype(np.float64))
+    line = []
+    for name, kw in PY_OPTIMIZERS:
+        label = name + ("(centered)" if kw.get("centered") else "")
+        if name == "sgld":
+            drawn = []
+            for ctx in ctxs:
+                mx.random.seed(SEED)
+                drawn.append(_one_update(mx, ctx, name, kw, w, g)[0])
+                noise = drawn[-1].double() - torch.from_numpy(det)
+                mean, var = noise.mean().item(), noise.var().item()
+                n = noise.numel()
+                line.append("sgld on %s: noise mean %.2e, variance / lr "
+                            "%.5f" % (ctx, mean, var / lr))
+                if not (abs(mean) < 5 * np.sqrt(lr / n)
+                        and abs(var / lr - 1) < 5 * np.sqrt(2.0 / n)):
+                    raise SmokeError("SGLD on %s: noise mean %.3e and "
+                                     "variance %.4e over %d elements, want "
+                                     "0 and lr %.0e" % (ctx, mean, var, n,
+                                                        lr))
+            mx.random.seed(SEED)
+            if not torch.equal(_one_update(mx, ctxs[0], name, kw, w, g)[0],
+                               drawn[0]):
+                raise SmokeError("SGLD on the card: seed %d drew other "
+                                 "noise the second time" % SEED)
+            continue
+        card, cpu = (_one_update(mx, ctx, name, kw, w, g) for ctx in ctxs)
+        share = max(fp32_share(a, b) for a, b in zip(card, cpu))
+        bits = all(torch.equal(a, b) for a, b in zip(card, cpu))
+        line.append("%s %s" % (label, "bitwise" if bits else
+                               "%.3f of the gate" % share))
+        if len(card) != len(cpu) or not share <= 1.0:
+            raise SmokeError("optimizer %s: card against CPU %.3f of the "
+                             "fp32 gate" % (label, share))
+    print("  optimizers, one update of %s, card against CPU: %s"
+          % (list(PY_OPT_SHAPE), "; ".join(line)))
+
+
+def _own_steps(lr, w0, weights, states):
+    """rmspropalex's first step in float64 from the card's own new states,
+    for the tensors it normalises (their step is about +-4.6 lr whatever
+    the gradient's size): the delta -lr g' / sqrt(n - g^2 + eps), with
+    g' = g / (1 - gamma1) the step's gradient (its states start at zero),
+    and the weights w0 + delta.  Returns {name: (got, want, scale)}, each
+    held to 2e-5 (|want| + scale), scale the tensor's largest step."""
+    import torch
+
+    gamma1 = 0.95
+    out = {}
+    for n, w in weights.items():
+        nn_, g, delta = (x.cpu().double() for x in states[n])
+        own = -lr * (g / np.float32(1 - gamma1)) / torch.sqrt(
+            nn_ - g * g + 1e-8)
+        out["%s[2]" % n] = (delta, own, own.abs().max().item())
+        want = w0[n].double() + delta
+        out[n] = (w.cpu().double(), want,
+                  (want - w0[n].double()).abs().max().item())
+    return out
+
+
+def _signed_means(w0, states):
+    """Adam's first step moves each element by about +-lr, the sign of its
+    gradient, whatever the gradient's size, so where a weight starts at
+    zero an element whose gradient is near zero may step either way on the
+    two devices.  For each such weight, the mask of the elements whose
+    mean (CPU) lies outside the mean's own gate band, where the mean
+    passing its gate fixes the sign on the card too."""
+    out = {}
+    for n, w in w0.items():
+        if not w.any():
+            m = states[n][0].abs()
+            out[n] = m > BF16_STEP_TOL * m.max()
+    return out
+
+
+def check_optimizer_step(dev, optimizer):
+    """Phase 11 (c): one ShardedTrainer step of the LM cut to 2 layers,
+    batch 1, T 512, bf16, with ``optimizer`` (lr as the Adam drive's), on
+    the card and on the CPU from the same init(seed) and batch, held to
+    phase 5's bf16 gates.  Adam: outputs, weights, mean and variance, a
+    weight that starts at zero on the elements :func:`_signed_means`
+    picks.  rmspropalex: outputs and the states that follow the gradient
+    (n, g); its delta and weights step by about +-4.6 lr whatever the
+    gradient's size, so where a gradient is near zero the two devices may
+    step them ~9 lr apart: they are held to the op's step from the card's
+    own new states instead (:func:`_own_steps`)."""
+    cfg = dict(STEP_CHECK, dtype="bfloat16")
+    host = _host_batch(cfg, STEP_BATCH, SEED + 4)
+    lr = MODULE_OPTIMIZERS["adam"]["learning_rate"]
+
+    def step(device):
+        tr = _trainer(cfg, STEP_BATCH, device, optimizer=optimizer,
+                      learning_rate=lr)
+        params, moms, aux = tr.init(seed=SEED)
+        w0 = {n: p.cpu().clone() for n, p in params.items()}
+        outs, params, moms, _ = tr.step_fn()(params, moms, aux,
+                                             tr.place_batch(host))
+        return ({"softmax_output": outs[0]}, params, moms), w0
+
+    card, w0 = step(dev)
+    cpu, _ = step("cpu")
+    if optimizer == "adam":
+        counts = (card[2]["__num_update__"].item(),
+                  cpu[2]["__num_update__"].item())
+        if counts != (1, 1):
+            raise SmokeError("adam step counters card, CPU %r, want 1, 1"
+                             % (counts,))
+        held = _signed_means(w0, cpu[2])
+        worst, bad = _step_errors(card, cpu, "bfloat16", held)
+        print("  (c) card vs CPU, one ShardedTrainer step (adam, lr %.0e) "
+              "of %d layers d%d T%d bf16: outputs %.3e (%s), weights %.3e "
+              "(%s), states %.3e (%s); gates as phase 5; %d weights that "
+              "start at zero held on %d of their %d elements"
+              % ((lr, cfg["num_layers"], cfg["num_embed"], cfg["seq_len"])
+                 + worst["output"] + worst["weight"] + worst["state"]
+                 + (len(held), sum(int(x.sum()) for x in held.values()),
+                    sum(x.numel() for x in held.values()))))
+    else:
+        own = _own_steps(lr, w0, card[1], card[2])
+        # n and g against the CPU's; the delta and weights above
+        followers = [{n: x for n, x in _flat_states(d[2]).items()
+                      if n not in own} for d in (card, cpu)]
+        worst, bad = _step_errors((card[0], {}, followers[0]),
+                                  (cpu[0], {}, followers[1]), "bfloat16")
+        share = {}
+        for n, (got, want, scale) in own.items():
+            err = ((got - want).abs() / (TOL * (want.abs() + scale))
+                   ).max().item()
+            share[n] = err
+            if not err <= 1.0:
+                bad.append("%s %.3f of its own step's gate" % (n, err))
+        top = max(share, key=share.get)
+        print("  (c) card vs CPU, one ShardedTrainer step (%s, lr %.0e) of "
+              "%d layers d%d T%d bf16: outputs %.3e (%s), states %.3e (%s), "
+              "gates as phase 5; %d normalised tensors against the op's "
+              "step from the card's states: %.3f of the 2e-5 gate (%s)"
+              % ((optimizer, lr, cfg["num_layers"], cfg["num_embed"],
+                  cfg["seq_len"]) + worst["output"] + worst["state"]
+                 + (len(own), share[top], top)))
+    if bad:
+        raise SmokeError("%s step differs between card and CPU: %s"
+                         % (optimizer, "; ".join(bad)))
 
 
 # -------------------------------------------------------------------- main
@@ -3163,6 +3551,19 @@ def main():
              CFG["seq_len"]))
     path_counts.append(run_module(dev, card))
     check_module_step(dev)
+
+    print("== phase 11: the other optimizers, card against CPU; Module.fit "
+          "with Adam, %d layers, d%d, batch %d, T %d, bfloat16"
+          % (CFG["num_layers"], CFG["num_embed"], TRAIN_BATCH,
+             CFG["seq_len"]))
+    t0 = time.perf_counter()
+    print("  (a) the update ops and the optimizers")
+    check_update_ops(dev)
+    check_optimizers(dev)
+    path_counts.append(run_module(dev, card, "adam"))
+    for optimizer in ("adam", "rmspropalex"):
+        check_optimizer_step(dev, optimizer)
+    print("  phase 11: %.1f s" % (time.perf_counter() - t0))
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts)

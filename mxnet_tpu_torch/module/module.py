@@ -4,8 +4,12 @@ package's ``module/module.py``), on one context.
 ``bind`` makes one :class:`~..executor.Executor` (``simple_bind``) on the
 context; ``init_params`` copies the initial weights into its arrays;
 ``init_optimizer`` makes the optimizer with ``rescale_grad = 1 / batch``
-and its updater; ``update`` calls the updater once per parameter, so an
-SGD-momentum step is one launch of the per-op kernel a parameter.
+and its updater (any optimizer of :mod:`..optimizer`, by name or given);
+``update`` calls the updater once per parameter, so an SGD-momentum step
+is one launch of the per-op kernel a parameter.  The optimizer's states,
+tuples of arrays for Adam and its like, are saved and loaded whole
+(``save_optimizer_states``, ``Module.load(..., load_optimizer_states=
+True)``).
 
 The context defaults to the current one: the card unless ``with
 mx.cpu():`` is in force (an error without CUDA), where the JAX package

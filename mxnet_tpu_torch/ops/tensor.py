@@ -3,10 +3,13 @@
 
 ``Embedding``, ``Reshape`` (with MXNet's special codes), ``Flatten``,
 ``transpose``, the broadcasting and scalar arithmetic of NDArray's
-operators and ``elemwise_add`` (the ``+`` of two symbols), ``Cast`` and the optimizer update ops ``sgd_update`` and
-``sgd_mom_update``.  Each compute
-rule takes ``(attrs, *tensors)``; plain PyTorch, differentiable by autograd,
-except ``sgd_mom_update``, which is the CUDA kernel's wrapper.
+operators and ``elemwise_add`` (the ``+`` of two symbols), ``Cast`` and
+the optimizer update ops ``sgd_update``, ``sgd_mom_update``,
+``adam_update``, ``rmsprop_update`` and ``rmspropalex_update``.  Each
+compute rule takes ``(attrs, *tensors)``; plain PyTorch, differentiable by
+autograd, except ``sgd_mom_update``, which is the CUDA kernel's wrapper.
+The other update ops are spelled as the JAX package's, each operation
+rounded on its own; that package has no kernel for them either.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from ..base import MXNetError
 from .fused.optimizer_kernels import fused_sgd_mom_update
 from .registry import P, register
 
-__all__ = ["infer_reshape"]
+__all__ = ["adam_rate", "infer_reshape", "prep_grad"]
 
 
 def _binary(name, fn, aliases=()):
@@ -145,12 +148,23 @@ _OPT_COMMON = {"lr": P("float", 0.01, required=True), "wd": P("float", 0.0),
                "clip_gradient": P("float", -1.0)}
 
 
+def prep_grad(g, rescale_grad, clip_gradient):
+    """``g * rescale_grad``, clipped to ``[-clip, clip]`` when clip > 0 (the
+    update ops' and the optimizers' first step)."""
+    g = g * rescale_grad
+    if clip_gradient is not None and clip_gradient > 0:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    return g
+
+
+def _prep_grad(g, attrs):
+    return prep_grad(g, attrs["rescale_grad"], attrs["clip_gradient"])
+
+
 @register("sgd_update", arg_names=["weight", "grad"],
           params=dict(_OPT_COMMON))
 def _sgd_update(attrs, w, g):
-    g = g * attrs["rescale_grad"]
-    if attrs["clip_gradient"] is not None and attrs["clip_gradient"] > 0:
-        g = torch.clamp(g, -attrs["clip_gradient"], attrs["clip_gradient"])
+    g = _prep_grad(g, attrs)
     return w - attrs["lr"] * (g + attrs["wd"] * w)
 
 
@@ -159,3 +173,73 @@ def _sgd_update(attrs, w, g):
           params=dict(_OPT_COMMON, momentum=P("float", 0.0)))
 def _sgd_mom_update(attrs, w, g, mom, out=None):
     return fused_sgd_mom_update(attrs, w, g, mom, out)
+
+
+
+# The last bias-corrected rate made on each device: Module's updater asks
+# for the same one once a parameter, the trainer once a parameter a step.
+_rates = {}
+
+
+def adam_rate(lr, beta1, beta2, t, device):
+    """Adam's bias-corrected rate ``lr * sqrt(1 - beta2^t) / (1 - beta1^t)``
+    as a float32 scalar tensor on ``device``, every operation in float32
+    there, as the JAX package computes it.  ``t`` is a Python int (the
+    optimizer's update count) or an integer tensor on ``device`` (the
+    trainer's step counter, read without a sync); equal values give equal
+    bits either way."""
+    device = torch.device(device)
+    # a tensor t by identity: the entry keeps it alive, so its id is unique
+    key = (float(lr), float(beta1), float(beta2),
+           (id(t), t._version) if torch.is_tensor(t) else int(t))
+    last = _rates.get(device)
+    if last is not None and last[0] == key:
+        return last[2]
+    f32 = dict(dtype=torch.float32, device=device)
+    tf = (t.to(torch.float32) if torch.is_tensor(t)
+          else torch.full((), float(t), **f32))
+    b1, b2 = torch.full((), beta1, **f32), torch.full((), beta2, **f32)
+    rate = lr * torch.sqrt(1 - b2 ** tf) / (1 - b1 ** tf)
+    _rates[device] = (key, t, rate)
+    return rate
+
+
+@register("adam_update", arg_names=["weight", "grad", "mean", "var"],
+          num_outputs=3,
+          params=dict(_OPT_COMMON, beta1=P("float", 0.9),
+                      beta2=P("float", 0.999), epsilon=P("float", 1e-8),
+                      t=P("int", 1)))
+def _adam_update(attrs, w, g, mean, var):
+    g = _prep_grad(g, attrs) + attrs["wd"] * w
+    b1, b2 = attrs["beta1"], attrs["beta2"]
+    new_mean = b1 * mean + (1 - b1) * g
+    new_var = b2 * var + (1 - b2) * torch.square(g)
+    lr = adam_rate(attrs["lr"], b1, b2, attrs["t"], w.device)
+    new_w = w - lr * new_mean / (torch.sqrt(new_var) + attrs["epsilon"])
+    return new_w, new_mean, new_var
+
+
+@register("rmsprop_update", arg_names=["weight", "grad", "n"], num_outputs=2,
+          params=dict(_OPT_COMMON, gamma1=P("float", 0.95),
+                      epsilon=P("float", 1e-8)))
+def _rmsprop_update(attrs, w, g, n):
+    g = _prep_grad(g, attrs) + attrs["wd"] * w
+    g1 = attrs["gamma1"]
+    new_n = g1 * n + (1 - g1) * torch.square(g)
+    new_w = w - attrs["lr"] * g / torch.sqrt(new_n + attrs["epsilon"])
+    return new_w, new_n
+
+
+@register("rmspropalex_update", arg_names=["weight", "grad", "n", "g",
+                                           "delta"],
+          num_outputs=4,
+          params=dict(_OPT_COMMON, gamma1=P("float", 0.95),
+                      gamma2=P("float", 0.9), epsilon=P("float", 1e-8)))
+def _rmspropalex_update(attrs, w, grad, n, g, delta):
+    grad = _prep_grad(grad, attrs) + attrs["wd"] * w
+    g1, g2 = attrs["gamma1"], attrs["gamma2"]
+    new_n = g1 * n + (1 - g1) * torch.square(grad)
+    new_g = g1 * g + (1 - g1) * grad
+    new_delta = g2 * delta - attrs["lr"] * grad / torch.sqrt(
+        new_n - torch.square(new_g) + attrs["epsilon"])
+    return w + new_delta, new_n, new_g, new_delta

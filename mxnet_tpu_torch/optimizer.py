@@ -1,33 +1,38 @@
-"""Optimizers (the JAX package's ``optimizer.py``: its base class, SGD and
-the updater).
+"""Optimizers (the JAX package's ``optimizer.py``: SGD, NAG, SGLD, ccSGD,
+Adam, AdaGrad, RMSProp, AdaDelta, Ftrl, DCASGD and Test, and the updater).
 
-``SGD.update`` runs the registered update ops on NDArrays, writing into
-the weight's and the momentum's own storage: ``nd.sgd_mom_update(w, g, m,
-out=[w, m])``, one launch of the per-op SGD-momentum kernel a parameter on
-the card, or ``nd.sgd_update`` without momentum.  ``get_updater`` is the
-closure ``Module.update`` calls once per parameter.  The JAX package's
-other optimizers run ops that the port's registry lacks (``adam_update``
-...): creating one raises, naming the op.
+Each ``update`` writes into the weight's and its states' own storage.
+``SGD`` runs ``nd.sgd_mom_update(w, g, m, out=[w, m])``, one launch of the
+per-op SGD-momentum kernel a parameter on the card, or ``nd.sgd_update``
+without momentum; ``Adam`` runs ``nd.adam_update`` and ``RMSProp``
+``nd.rmsprop_update`` (``centered``: ``nd.rmspropalex_update``), the
+registered ops the trainer runs too.  The others are written here in
+PyTorch as the JAX package writes them in jnp; ``SGLD`` draws its noise
+from :mod:`.random`.  States are NDArrays on the weight's device, or tuples
+of them.  ``get_updater`` is the closure ``Module.update`` calls once per
+parameter.
 """
 
 from __future__ import annotations
 
+import math
 import pickle
 import threading
 
+import torch
+
 from . import ndarray as nd
-from .base import MXNetError
+from . import random as _random
+from .ops.tensor import prep_grad
 
-__all__ = ["Optimizer", "SGD", "Updater", "create", "get_updater",
-           "register"]
+__all__ = ["AdaDelta", "AdaGrad", "Adam", "DCASGD", "Ftrl", "NAG",
+           "Optimizer", "RMSProp", "SGD", "SGLD", "Test", "Updater",
+           "ccSGD", "create", "get_updater", "register"]
 
-# The JAX package's other optimizers and the update math each needs.
-_NOT_PORTED = {"adam": "the op adam_update", "rmsprop": "the op "
-               "rmsprop_update", "nag": "its Nesterov update",
-               "sgld": "its Langevin noise", "ccsgd": "its update",
-               "adagrad": "its update", "adadelta": "its update",
-               "ftrl": "its update", "dcasgd": "its update",
-               "test": "its update"}
+
+def _zeros_like(weight):
+    """A state array of the weight's shape, dtype and device."""
+    return nd.NDArray(torch.zeros_like(weight._data))
 
 
 class Optimizer(object):
@@ -45,13 +50,8 @@ class Optimizer(object):
 
     @staticmethod
     def create_optimizer(name, **kwargs):
-        key = name.lower()
-        if key in Optimizer.opt_registry:
-            return Optimizer.opt_registry[key](**kwargs)
-        if key in _NOT_PORTED:
-            raise MXNetError("optimizer %r needs %s, which mxnet_tpu_torch "
-                             "does not have yet (it trains with 'sgd')"
-                             % (name, _NOT_PORTED[key]))
+        if name.lower() in Optimizer.opt_registry:
+            return Optimizer.opt_registry[name.lower()](**kwargs)
         raise ValueError("Cannot find optimizer %s" % name)
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
@@ -156,7 +156,7 @@ class SGD(Optimizer):
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return None
-        return nd.NDArray(weight._data.new_zeros(weight.shape))
+        return _zeros_like(weight)
 
     def update(self, index, weight, grad, state):
         lr = self._get_lr(index)
@@ -169,6 +169,240 @@ class SGD(Optimizer):
                               momentum=self.momentum, **kwargs)
         else:
             nd.sgd_update(weight, grad, out=weight, **kwargs)
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD."""
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = prep_grad(grad._data, self.rescale_grad, self.clip_gradient)
+        w = weight._data
+        if state is not None:
+            mom = state._data * self.momentum
+            gfull = g + wd * w
+            mom = mom + gfull
+            g2 = gfull + self.momentum * mom
+            state._write(mom)
+            weight._write(w - lr * g2)
+        else:
+            weight._write(w - lr * (g + wd * w))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: the noise is drawn from the
+    weight device's generator (:mod:`.random`)."""
+
+    def create_state(self, index, weight):
+        return None
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = prep_grad(grad._data, self.rescale_grad, self.clip_gradient)
+        w = weight._data
+        noise = torch.randn(w.shape, dtype=w.dtype, device=w.device,
+                            generator=_random.generator(w.device)) \
+            * math.sqrt(lr)
+        weight._write(w - lr / 2 * (g + wd * w) + noise)
+
+
+@register
+class ccSGD(SGD):
+    """Same as SGD."""
+
+
+@register
+class Adam(Optimizer):
+    """Adam, through the registered ``adam_update``; ``t`` is the
+    parameter's own update count."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        t = self._index_update_count[index]
+        mean, var = state
+        nd.adam_update(weight, grad, mean, var, out=[weight, mean, var],
+                       lr=lr, wd=wd, beta1=self.beta1, beta2=self.beta2,
+                       epsilon=self.epsilon, t=t,
+                       rescale_grad=self.rescale_grad,
+                       clip_gradient=self.clip_gradient or -1.0)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = prep_grad(grad._data, self.rescale_grad, self.clip_gradient)
+        w = weight._data
+        hist = state._data + torch.square(g)
+        state._write(hist)
+        weight._write(w - lr * (g / torch.sqrt(hist + self.float_stable_eps)
+                                + wd * w))
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp through ``rmsprop_update``; ``centered=True`` is Alex
+    Graves's variant, through ``rmspropalex_update``."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros_like(weight), _zeros_like(weight),
+                    _zeros_like(weight))
+        return (_zeros_like(weight),)
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        kwargs = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
+                      clip_gradient=self.clip_gradient or -1.0,
+                      gamma1=self.gamma1, epsilon=self.epsilon)
+        if not self.centered:
+            (n,) = state
+            nd.rmsprop_update(weight, grad, n, out=[weight, n], **kwargs)
+        else:
+            n, g, delta = state
+            nd.rmspropalex_update(weight, grad, n, g, delta,
+                                  out=[weight, n, g, delta],
+                                  gamma2=self.gamma2, **kwargs)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = prep_grad(grad._data, self.rescale_grad, self.clip_gradient)
+        acc_g, acc_delta = state
+        new_acc_g = self.rho * acc_g._data + (1.0 - self.rho) * torch.square(g)
+        delta = (torch.sqrt(acc_delta._data + self.epsilon)
+                 / torch.sqrt(new_acc_g + self.epsilon) * g)
+        new_acc_delta = (self.rho * acc_delta._data
+                         + (1.0 - self.rho) * torch.square(delta))
+        acc_g._write(new_acc_g)
+        acc_delta._write(new_acc_delta)
+        weight._write(weight._data - delta - wd * weight._data)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = prep_grad(grad._data, self.rescale_grad, self.clip_gradient)
+        z, n = state
+        sigma = (torch.sqrt(n._data + torch.square(g))
+                 - torch.sqrt(n._data)) / lr
+        new_z = z._data + g - sigma * weight._data
+        new_n = n._data + torch.square(g)
+        z._write(new_z)
+        n._write(new_n)
+        weight._write(torch.where(
+            torch.abs(new_z) <= self.lamda1, torch.zeros_like(new_z),
+            (torch.sign(new_z) * self.lamda1 - new_z)
+            / ((self.beta + torch.sqrt(new_n)) / lr + wd)))
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return (None, weight.copy())
+        return (_zeros_like(weight), weight.copy())
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = prep_grad(grad._data, self.rescale_grad, self.clip_gradient)
+        mon, previous_weight = state
+        w = weight._data
+        delta = -lr * (g + wd * w
+                       + self.lamda * g * g * (w - previous_weight._data))
+        if mon is not None:
+            delta = self.momentum * mon._data + delta
+            mon._write(delta)
+        previous_weight._write(w)
+        weight._write(w + delta)
+
+
+@register
+class Test(Optimizer):
+    """``w += rescale_grad * grad``; the state holds the new weight."""
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        weight._write(weight._data + grad._data * self.rescale_grad)
+        state._write(weight._data)
 
 
 def create(name, rescale_grad=1.0, **kwargs):

@@ -4,21 +4,26 @@ The JAX trainer traces forward, backward and the optimizer update into one
 jitted step over a device mesh.  The port's step runs the same math
 eagerly on one device: the graph function of :mod:`..executor`, the loss
 ``sum(outputs)`` differentiated by ``torch.autograd`` (a ``SoftmaxOutput``
-head supplies its own cross-entropy gradient), then the update.  With
-momentum the update is ONE launch of the multi-tensor SGD-momentum kernel
-over every parameter (``fused_sgd_mom_tree``, the JAX trainer's ``use_tree``
-route); with momentum 0 it is one ``sgd_update`` per parameter.
+head supplies its own cross-entropy gradient), then the update.  The
+optimizer is any registered ``<name>_update`` op, as in the JAX trainer
+(:func:`resolve_update_op`).  SGD with momentum is ONE launch of the
+multi-tensor SGD-momentum kernel over every parameter
+(``fused_sgd_mom_tree``, the JAX trainer's ``use_tree`` route); any other
+op runs once per parameter, with the op's states in ``moms[name]`` (one
+stored bare, several as a tuple).  An op that takes ``t`` (Adam's bias
+correction) reads the step counter ``moms["__num_update__"]``, an int32
+scalar on the device, so a step never waits for the host.
 ``skip_nonfinite`` folds the finite check of the loss and every gradient
-into a device flag that the kernel reads, so a bad batch leaves the state
-as it was and the host never waits for the verdict.  Auxiliary states
-(BatchNorm's moving statistics) go through the graph in training mode and
-come back updated.
+into a device flag, so a bad batch leaves every weight, state, the counter
+and the auxiliary states as they were and the host never waits for the
+verdict.  Auxiliary states (BatchNorm's moving statistics) go through the
+graph in training mode and come back updated.
 
-Parameters and momenta are updated in place (the JAX step donates its
+Parameters and states are updated in place (the JAX step donates its
 inputs) and returned.  Mesh sharding, ZeRO, gradient accumulation, mixed
-precision, LR schedules, rematerialization, multi-step pipelining and
-optimizers other than SGD are later slices and raise
-:class:`~mxnet_tpu_torch.base.MXNetError` naming themselves.
+precision, LR schedules, rematerialization and multi-step pipelining are
+later slices and raise :class:`~mxnet_tpu_torch.base.MXNetError` naming
+themselves.
 """
 
 from __future__ import annotations
@@ -41,30 +46,46 @@ __all__ = ["ShardedTrainer", "fused_sgd_mom_tree", "resolve_update_op",
            "sgd_mom_tree_stock", "trainer_state_from_jax"]
 
 
+_STEP_COUNT = "__num_update__"  # the step counter's key in moms
+
+
 def resolve_update_op(optimizer, optimizer_params, momentum, learning_rate,
                       wd, rescale_grad, clip_gradient):
-    """``(update_op, attrs)`` of an SGD optimizer: ``sgd_mom_update``
-    with momentum, else ``sgd_update`` (the JAX package's
-    ``resolve_update_op``, SGD only)."""
+    """``(update_op, attrs, n_states, needs_t)`` of an optimizer name over
+    the registered update ops (the JAX package's ``resolve_update_op``):
+    ``"sgd"`` is ``sgd_mom_update`` with momentum (from ``momentum=`` or
+    ``optimizer_params``) and ``sgd_update`` without; any other name is
+    the op ``<name>_update``."""
     opt_name = (optimizer or "sgd").lower()
-    if opt_name != "sgd":
-        raise MXNetError("optimizer=%r is not ported yet (only 'sgd')"
-                         % optimizer)
     opt_kwargs = dict(optimizer_params or {})
-    if ("momentum" in opt_kwargs and momentum
-            and opt_kwargs["momentum"] != momentum):
-        raise MXNetError("momentum given twice (momentum=%r, optimizer_params"
-                         "['momentum']=%r)" % (momentum,
-                                               opt_kwargs["momentum"]))
-    eff_mom = opt_kwargs.pop("momentum", momentum)
-    update_op = get_op("sgd_mom_update" if eff_mom else "sgd_update")
+    if opt_name == "sgd":
+        if ("momentum" in opt_kwargs and momentum
+                and opt_kwargs["momentum"] != momentum):
+            raise MXNetError("momentum given twice (momentum=%r, "
+                             "optimizer_params['momentum']=%r)"
+                             % (momentum, opt_kwargs["momentum"]))
+        eff_mom = opt_kwargs.pop("momentum", momentum)
+        op_name = "sgd_mom_update" if eff_mom else "sgd_update"
+        if eff_mom:
+            opt_kwargs["momentum"] = eff_mom
+    else:
+        if momentum:
+            raise MXNetError("momentum= is an SGD knob; pass "
+                             "optimizer_params for %r" % opt_name)
+        op_name = (opt_name if opt_name.endswith("_update")
+                   else opt_name + "_update")
+    try:
+        update_op = get_op(op_name)
+    except MXNetError:
+        raise MXNetError("no fused update op %r for optimizer %r"
+                         % (op_name, opt_name)) from None
     static = {"lr": learning_rate, "wd": wd, "rescale_grad": rescale_grad,
               "clip_gradient": (clip_gradient if clip_gradient is not None
                                 else -1.0)}
-    if eff_mom:
-        static["momentum"] = eff_mom
     static.update(opt_kwargs)
-    return update_op, update_op.parse_attrs(static)
+    attrs = update_op.parse_attrs(static)
+    return (update_op, attrs, update_op.n_outputs(attrs) - 1,
+            "t" in update_op.params)
 
 
 def _mesh_devices(mesh):
@@ -86,7 +107,8 @@ class ShardedTrainer:
     every kernel's plain version.  ``mesh`` may be ``None`` or anything of
     one device.
 
-    ``init(seed)`` → ``(params, moms, aux)``; ``place_batch(arrays)`` →
+    ``init(seed)`` → ``(params, moms, aux)`` (``moms`` by parameter, and
+    the step counter when the op takes ``t``); ``place_batch(arrays)`` →
     the batch as tensors; ``step_fn()`` → ``step(params, moms, aux, batch,
     rng=None) -> (outputs, params, moms, aux)``.  With ``skip_nonfinite``
     the outputs end with a float flag (1.0 the update applied, 0.0
@@ -144,10 +166,11 @@ class ShardedTrainer:
         self.aux_dtypes = dict(zip(aux_names, aux_dtypes))
         self._diff = [n for n in self.param_names
                       if not np.issubdtype(self.arg_dtypes[n], np.integer)]
-        self._update_op, self._opt_attrs = resolve_update_op(
+        (self._update_op, self._opt_attrs, self._n_states,
+         self._needs_t) = resolve_update_op(
             optimizer, optimizer_params, momentum, learning_rate, wd,
             rescale_grad, clip_gradient)
-        self._use_momentum = self._update_op.name == "sgd_mom_update"
+        self._use_tree = self._update_op.name == "sgd_mom_update"
         self._skip_nonfinite = bool(skip_nonfinite)
         self._run = graph_fn(symbol)
         self._step = None
@@ -166,8 +189,10 @@ class ShardedTrainer:
                 arr = np.zeros(self.arg_shapes[n], self.arg_dtypes[n])
                 initializer(InitDesc(n), arr)
                 params[n] = torch.from_numpy(arr).to(self.device)
-                if self._use_momentum and n in self._diff:
-                    moms[n] = torch.zeros_like(params[n])
+                if self._n_states:
+                    states = tuple(torch.zeros_like(params[n])
+                                   for _ in range(self._n_states))
+                    moms[n] = states[0] if self._n_states == 1 else states
             for n, shp in self.aux_shapes.items():
                 fill = (np.ones if n.endswith("_var") or "moving_var" in n
                         else np.zeros)
@@ -175,6 +200,9 @@ class ShardedTrainer:
                     fill(shp, self.aux_dtypes[n])).to(self.device)
         finally:
             np.random.set_state(saved)
+        if self._needs_t:
+            moms[_STEP_COUNT] = torch.zeros((), dtype=torch.int32,
+                                            device=self.device)
         return params, moms, aux
 
     def place_batch(self, arrays):
@@ -199,7 +227,7 @@ class ShardedTrainer:
     def _build_step(self):
         run, diff = self._run, list(self._diff)
         attrs, guard = self._opt_attrs, self._skip_nonfinite
-        update_op, use_tree = self._update_op, self._use_momentum
+        update_op, use_tree = self._update_op, self._use_tree
 
         def step(params, moms, aux, batch, rng=None):
             leaves = {n: params[n].detach().requires_grad_(True)
@@ -228,12 +256,7 @@ class ShardedTrainer:
                     fused_sgd_mom_tree(attrs, {n: params[n] for n in diff},
                                        grads, {n: moms[n] for n in diff}, ok)
                 else:
-                    for n in diff:
-                        (new_w,), _ = update_op.apply(attrs,
-                                                      [params[n], grads[n]])
-                        if ok is not None:
-                            new_w = torch.where(ok, new_w, params[n])
-                        params[n].copy_(new_w)
+                    self._update_each(params, moms, grads, ok)
                 if ok is not None:
                     new_aux = {n: torch.where(ok, t, aux[n])
                                for n, t in new_aux.items()}
@@ -242,19 +265,40 @@ class ShardedTrainer:
 
         return step
 
+    def _update_each(self, params, moms, grads, ok):
+        """The update op once per differentiated parameter, each new value
+        written into its tensor (kept as it was where ``ok`` is False), the
+        step counter too."""
+        attrs, bare = self._opt_attrs, self._n_states == 1
+        count = moms.get(_STEP_COUNT)
+        if self._needs_t:
+            attrs = dict(attrs, t=count + 1)
+        for n in self._diff:
+            states = (moms[n],) if bare else moms.get(n, ())
+            news, _ = self._update_op.apply(
+                attrs, [params[n], grads[n], *states])
+            olds = (params[n],) + tuple(states)
+            for old, new in zip(olds, news):
+                old.copy_(new if ok is None else torch.where(ok, new, old))
+        if self._needs_t:
+            count.copy_(attrs["t"] if ok is None
+                        else torch.where(ok, attrs["t"], count))
+
 
 def trainer_state_from_jax(params, moms, aux, device=None):
     """The JAX trainer's ``(params, moms, aux)`` dicts (numpy arrays, or
-    anything ``numpy.asarray`` takes) → the port's, same names, as tensors
-    on ``device`` (default: the CUDA device).  Each array is copied."""
+    anything ``numpy.asarray`` takes; a state of several slots a tuple of
+    them, the step counter a scalar) → the port's, same names and layout,
+    as tensors on ``device`` (default: the CUDA device).  Each array is
+    copied."""
     device = resolve_device(device)
 
-    def conv(d):
-        out = {}
-        for n, a in d.items():
-            a = np.array(a)
-            out[n] = torch.from_numpy(a).to(device=device,
-                                            dtype=torch_dtype(a.dtype))
-        return out
+    def conv(a):
+        if isinstance(a, tuple):
+            return tuple(conv(x) for x in a)
+        a = np.array(a)
+        return torch.from_numpy(a).to(device=device,
+                                      dtype=torch_dtype(a.dtype))
 
-    return conv(params), conv(moms), conv(aux)
+    return tuple({n: conv(a) for n, a in d.items()}
+                 for d in (params, moms, aux))

@@ -19,7 +19,9 @@ Perplexity readings too.  The classifier cases run the repo's end-to-end
 drive (four Gaussian blobs, a two-layer MLP) through both packages'
 ``Module.fit`` (Xavier, ``FactorScheduler``, ``Speedometer``, ten epochs)
 from one numpy seed, then score a checkpoint written by each package in
-the other.
+the other.  They also train with the other update ops (``adam``,
+``rmsprop``, ``rmspropalex``: three trainer steps each, the states and
+Adam's step counter held too) and run the blobs recipe with Adam.
 """
 
 import numpy as np
@@ -49,6 +51,9 @@ PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
 MOM_TOL = dict(rtol=1e-3, atol=1e-8)
 
 B, T, V = 2, 16, 64
+# The blobs recipe with Adam: 400 samples in batches of 200.  Each new t of
+# the JAX package's nd.adam_update compiles anew, per parameter shape.
+BLOBS_BATCH = 200
 CFG = dict(num_classes=V, seq_len=T, num_embed=32, num_heads=4, num_layers=2)
 
 
@@ -94,12 +99,37 @@ def _close(got, want, tol, what):
 
 
 def _module_state(mod):
-    """A Module's parameters and momenta (by parameter name) as numpy."""
+    """A Module's parameters and optimizer states (by parameter name) as
+    numpy; a state of several slots as a tuple."""
     args, _ = mod.get_params()
     states = mod._updater.states
+
+    def host(st):
+        return (tuple(x.asnumpy() for x in st) if isinstance(st, tuple)
+                else st.asnumpy())
+
     return ({n: a.asnumpy() for n, a in args.items()},
-            {n: states[i].asnumpy() for i, n in enumerate(mod._param_names)
+            {n: host(states[i]) for i, n in enumerate(mod._param_names)
              if states.get(i) is not None})
+
+
+def _slots(state):
+    return state if isinstance(state, tuple) else (state,)
+
+
+def _close_states(got, want, what):
+    """Optimizer states (bare or tuples of slots, numpy or tensors) within
+    MOM_TOL; the step counter equal."""
+    assert sorted(got) == sorted(want), what
+    for n in want:
+        if n == "__num_update__":
+            assert int(got[n]) == int(want[n]), what
+            continue
+        assert len(_slots(got[n])) == len(_slots(want[n])), (what, n)
+        for i, (a, b) in enumerate(zip(_slots(got[n]), _slots(want[n]))):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       err_msg="%s %s[%d]" % (what, n, i),
+                                       **MOM_TOL)
 
 
 def _fit_lm(mx, cfg, weights):
@@ -258,32 +288,31 @@ def _blobs_net(mx):
                                 name="softmax")
 
 
-def _fit_blobs(mx, momentum, prefix):
-    """The blobs recipe: ten epochs of ``Module.fit``, shuffled batches
-    and Xavier weights drawn from numpy's seed 0; then the training
-    accuracy, and a checkpoint at ``prefix``."""
+def _fit_blobs(mx, prefix, optimizer_params, optimizer="sgd",
+               num_epoch=10, batch_size=40):
+    """The blobs recipe: ``num_epoch`` epochs of ``Module.fit``, shuffled
+    batches and Xavier weights drawn from numpy's seed 0; then the training
+    accuracy, and a checkpoint at ``prefix``.  Returns the module too."""
     data, labels = _blobs()
     saved = np.random.get_state()
     np.random.seed(0)
     try:
         with mx.cpu():
-            train = mx.io.NDArrayIter(data, labels, batch_size=40,
+            train = mx.io.NDArrayIter(data, labels, batch_size=batch_size,
                                       shuffle=True)
             mod = mx.mod.Module(_blobs_net(mx), context=mx.cpu())
-            mod.fit(train, num_epoch=10, optimizer="sgd",
-                    optimizer_params={
-                        "learning_rate": 0.2, "momentum": momentum,
-                        "lr_scheduler":
-                            mx.lr_scheduler.FactorScheduler(20, 0.9)},
+            mod.fit(train, num_epoch=num_epoch, optimizer=optimizer,
+                    optimizer_params=optimizer_params,
                     initializer=mx.initializer.Xavier(),
-                    batch_end_callback=mx.callback.Speedometer(40, 5))
+                    batch_end_callback=mx.callback.Speedometer(batch_size, 5))
     finally:
         np.random.set_state(saved)
     with mx.cpu():
-        acc = mod.score(mx.io.NDArrayIter(data, labels, batch_size=40), "acc")
+        acc = mod.score(mx.io.NDArrayIter(data, labels,
+                                          batch_size=batch_size), "acc")
         mod.save_checkpoint(prefix, 1)
         params, moms = _module_state(mod)
-    return params, moms, acc
+    return params, moms, acc, mod
 
 
 def _score_checkpoint(mx, prefix):
@@ -298,23 +327,33 @@ def _score_checkpoint(mx, prefix):
                          "acc")
 
 
-@pytest.mark.parametrize("momentum,skip", [(0.0, False), (0.9, True)])
-def test_classifier_steps_match_jax(momentum, skip, tmp_path):
-    """Momentum 0 takes the per-parameter ``sgd_update`` loop; with
-    ``skip_nonfinite`` a NaN batch (the second) leaves every weight and
-    momentum as it was and the trailing flag reads 0.0.  Then the blobs
-    recipe through both packages' ``Module.fit`` at the case's momentum,
-    and each package's checkpoint scored by the other."""
+def _classifier_steps(skip, **kw):
+    """Three steps of the classifier through both trainers (lr 0.1, wd,
+    clip 0.5, ``kw``): outputs, weights and states held to the JAX
+    trainer's after each; with ``skip`` the second batch carries a NaN,
+    and that step must leave every weight, state slot and the step counter
+    as they were, with the trailing flag 0.0.  Returns the port's trainer,
+    its initial weights and its final ``(params, moms)``."""
     jt, pt = _pair(_classifier(jsym), _classifier(psym),
                    {"data": (4, 6), "softmax_label": (4,)}, {},
-                   learning_rate=0.1, momentum=momentum, wd=1e-3,
-                   clip_gradient=0.5, skip_nonfinite=skip)
+                   learning_rate=0.1, wd=1e-3, clip_gradient=0.5,
+                   skip_nonfinite=skip, **kw)
     jp, jm, ja = jt.init(seed=3)
     pp, pm, pa = pt.init(seed=3)
+    first = {n: t.clone() for n, t in pp.items()}
+    # the JAX layout carried across: tuples of slots, the step counter
+    cm = trainer_state_from_jax(
+        {}, jax.tree_util.tree_map(np.asarray, jm), {}, "cpu")[1]
+    assert sorted(cm) == sorted(pm)
+    for n in pm:
+        got, want = _slots(cm[n]), _slots(pm[n])
+        assert len(got) == len(want), n
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), n
     jstep, pstep = jt.step_fn(), pt.step_fn()
     for i in range(3):
         batch = _cls_batch(i, nan=skip and i == 1)
-        before = {n: t.clone() for n, t in pp.items()}
+        before = [t.clone() for t in list(pp.values()) + [
+            x for st in pm.values() for x in _slots(st)]]
         jouts, jp, jm, ja = jstep(jp, jm, ja, jt.place_batch(batch),
                                   jax.random.PRNGKey(i))
         pouts, pp, pm, pa = pstep(pp, pm, pa, pt.place_batch(batch))
@@ -323,26 +362,106 @@ def test_classifier_steps_match_jax(momentum, skip, tmp_path):
             assert float(pouts[-1]) == float(jouts[-1]) == (0.0 if i == 1
                                                             else 1.0)
             if i == 1:
-                for n in pp:
-                    assert torch.equal(pp[n], before[n])
+                after = list(pp.values()) + [x for st in pm.values()
+                                             for x in _slots(st)]
+                assert all(torch.equal(a, b) for a, b in zip(after, before))
         _close(pp, jp, PARAM_TOL, "param")
-        _close(pm, jm, MOM_TOL, "momentum")
-    assert (momentum == 0) == (pm == {} and jm == {})
+        _close_states(pm, jm, "%s state" % kw)
+    return pt, first, pp, pm
+
+
+def _module_steps(optimizer, weights, **params):
+    """The port's ``Module.fit`` over the classifier trainer's three batches
+    (one epoch, batch 4) from ``weights``: its ``(params, states)``."""
+    batches = [_cls_batch(i) for i in range(3)]
+    with pmx.cpu():
+        it = pmx.io.NDArrayIter(
+            np.concatenate([b["data"] for b in batches]),
+            np.concatenate([b["softmax_label"] for b in batches]),
+            batch_size=4)
+        mod = pmx.mod.Module(_classifier(psym), context=pmx.cpu())
+        mod.fit(it, num_epoch=1, optimizer=optimizer,
+                optimizer_params=params, arg_params={
+                    n: pmx.nd.NDArray(w.clone()) for n, w in weights.items()})
+    return _module_state(mod)
+
+
+@pytest.mark.parametrize("momentum,skip", [(0.0, False), (0.9, True)])
+def test_classifier_steps_match_jax(momentum, skip, tmp_path):
+    """Momentum 0 takes the per-parameter ``sgd_update`` loop; with
+    ``skip_nonfinite`` a NaN batch (the second) leaves every weight and
+    momentum as it was and the trailing flag reads 0.0.  Then the blobs
+    recipe through both packages' ``Module.fit`` at the case's momentum,
+    and each package's checkpoint scored by the other.
+
+    The other optimizers: without the guard, three trainer steps with
+    ``adam`` (its step counter in the states) and ``rmsprop``, the port's
+    ``Module.fit`` with Adam bitwise its trainer, the blobs recipe with Adam
+    (two epochs) in both packages, and the port's saved optimizer states
+    loaded into a fresh Module (``Module.load``) giving the trained one's
+    next update bit for bit; with the guard, ``rmspropalex`` and ``adam``,
+    the NaN batch keeping every slot and the counter."""
+    _classifier_steps(skip, momentum=momentum)
+    for optimizer in ("rmspropalex", "adam") if skip else ("rmsprop", "adam"):
+        pt, first, pp, pm = _classifier_steps(skip, optimizer=optimizer)
+    assert int(pm["__num_update__"]) == 3 - skip
+    if not skip:
+        # Module's Adam runs the trainer's op with t its update count
+        mp, mm = _module_steps("adam", first, learning_rate=0.1, wd=1e-3,
+                               clip_gradient=0.5, rescale_grad=1.0)
+        for n in pp:
+            assert np.array_equal(mp[n], pp[n].numpy()), n
+            assert all(np.array_equal(a, b.numpy())
+                       for a, b in zip(mm[n], pm[n])), n
 
     jprefix, pprefix = str(tmp_path / "jax"), str(tmp_path / "port")
-    jp, jm, jacc = _fit_blobs(jmx, momentum, jprefix)
-    pp, pm, pacc = _fit_blobs(pmx, momentum, pprefix)
+    sgd = {"learning_rate": 0.2, "momentum": momentum}
+    jp, jm, jacc, _ = _fit_blobs(jmx, jprefix, dict(
+        sgd, lr_scheduler=jmx.lr_scheduler.FactorScheduler(20, 0.9)))
+    pp, pm, pacc, _ = _fit_blobs(pmx, pprefix, dict(
+        sgd, lr_scheduler=pmx.lr_scheduler.FactorScheduler(20, 0.9)))
     assert pacc == jacc and jacc[0][1] > 0.95
     for n in jp:
         np.testing.assert_allclose(pp[n], jp[n], err_msg="param " + n,
                                    **PARAM_TOL)
     assert sorted(pm) == sorted(jm) == ([] if momentum == 0 else sorted(jp))
-    for n in jm:
-        np.testing.assert_allclose(pm[n], jm[n], err_msg="momentum " + n,
-                                   **MOM_TOL)
+    _close_states(pm, jm, "momentum")
     wait_for_checkpoint(jprefix + "-0001.params")
     assert _score_checkpoint(pmx, jprefix) == jacc
     assert _score_checkpoint(jmx, pprefix) == pacc
+    if skip:
+        return
+
+    adam = {"learning_rate": 0.01}
+    jp, jm, jacc, _ = _fit_blobs(jmx, jprefix, adam, "adam", 2, BLOBS_BATCH)
+    pp, pm, pacc, mod = _fit_blobs(pmx, pprefix, adam, "adam", 2,
+                                   BLOBS_BATCH)
+    assert pacc == jacc and jacc[0][1] > 0.95
+    for n in jp:
+        np.testing.assert_allclose(pp[n], jp[n], err_msg="Adam param " + n,
+                                   **PARAM_TOL)
+    _close_states(pm, jm, "Adam state")
+    # the saved states (two slots a parameter) in a fresh Module: the same
+    # next update, bit for bit
+    data, labels = _blobs()
+    with pmx.cpu():
+        mod.save_checkpoint(pprefix, 2, save_optimizer_states=True)
+        fresh = pmx.mod.Module.load(pprefix, 2, load_optimizer_states=True,
+                                    context=pmx.cpu())
+        fresh.bind(data_shapes=[("data", (BLOBS_BATCH, 10))],
+                   label_shapes=[("softmax_label", (BLOBS_BATCH,))])
+        fresh.set_params(*mod.get_params())
+        fresh.init_optimizer(optimizer="adam", optimizer_params=dict(
+            adam, begin_num_update=2 * len(data) // BLOBS_BATCH))
+        batch = pmx.io.NDArrayIter(data[:BLOBS_BATCH], labels[:BLOBS_BATCH],
+                                   batch_size=BLOBS_BATCH).next()
+        for m in (mod, fresh):
+            m.forward_backward(batch)
+            m.update()
+        (ap, am), (bp, bm) = _module_state(mod), _module_state(fresh)
+    for n in ap:
+        assert np.array_equal(ap[n], bp[n]), n
+        assert all(np.array_equal(a, b) for a, b in zip(am[n], bm[n])), n
 
 
 def test_device_none_needs_cuda(monkeypatch):
@@ -369,14 +488,23 @@ def test_device_none_needs_cuda(monkeypatch):
 @pytest.mark.parametrize("knob", [
     {"zero_stage": 1}, {"grad_accum": 2}, {"multi_precision": True},
     {"lr_scheduler": lambda t: 0.1}, {"remat": True}, {"pipeline_steps": 2},
-    {"optimizer": "adam"}])
+    {"optimizer": "nadamax"}])
 def test_later_slices_raise_naming_their_knob(knob):
+    """Each knob of a later slice raises naming itself; so does an
+    optimizer with no registered update op, and ``momentum=`` with an
+    optimizer other than SGD."""
     name = next(iter(knob))
     with pytest.raises(MXNetError, match=name if name != "optimizer"
-                       else "adam"):
+                       else "no fused update op 'nadamax_update'"):
         ShardedTrainer(_classifier(psym), None, data_shapes={"data": (4, 6)},
                        label_shapes={"softmax_label": (4,)}, device="cpu",
                        **knob)
+    if name == "optimizer":
+        with pytest.raises(MXNetError, match="momentum= is an SGD knob"):
+            ShardedTrainer(_classifier(psym), None,
+                           data_shapes={"data": (4, 6)},
+                           label_shapes={"softmax_label": (4,)},
+                           device="cpu", optimizer="adam", momentum=0.9)
 
 
 def test_mesh_of_many_devices_raises():
